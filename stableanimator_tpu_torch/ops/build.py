@@ -1,0 +1,55 @@
+"""Builds the port's CUDA sources into shared libraries, on first use.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
+`nvcc` for Hopper (sm_90a) into `csrc/_build/lib<name>_<hash>.so`, where
+the hash covers the source and the flags: a changed source builds anew, an
+unchanged one is reused. The library is loaded with ctypes by the module
+that wraps the kernel. Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the port's "
+                           "CUDA kernels are built on the machine with the GPU")
+    return path
+
+
+def build_kernel(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless the library for this exact source is
+    already built; returns its path. The compiler's report (ptxas registers,
+    shared memory, spills) is kept beside it as `.log`."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out

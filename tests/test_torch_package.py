@@ -1,0 +1,146 @@
+"""Guards of the PyTorch port (`stableanimator_tpu_torch`):
+
+  (a) the port and chip_smoke.py load no jax, flax or JAX-package module;
+  (b) its entry points default to CUDA and raise without it, unless the
+      caller asks for the CPU;
+  (c) the JAX package's converters, applied to the port's state dicts,
+      give back the JAX parameter trees exactly (the port's names are the
+      reference/diffusers names);
+  (d) the full-size port models map through the JAX package's key rules
+      onto the full-size Flax parameter trees, key for key and shape for
+      shape.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from stableanimator_tpu.convert import torch_to_jax as t2j
+from stableanimator_tpu.core.config import micro_model_kwargs as jax_micro_kwargs
+from stableanimator_tpu.pipeline import build_models as jax_build_models
+from stableanimator_tpu.pipeline import fast_init_params, init_params
+from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
+from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+from stableanimator_tpu_torch.pipeline import animation
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = ("unet", "vae", "clip", "pose_net", "face_encoder")
+CONVERTERS = {"unet": t2j.convert_unet, "vae": t2j.convert_vae, "clip": t2j.convert_clip_vision,
+              "pose_net": t2j.convert_pose_net, "face_encoder": t2j.convert_face_encoder}
+KEY_RULES = {"unet": t2j._unet_key, "vae": t2j._vae_key, "clip": t2j._clip_key,
+             "pose_net": t2j._pose_net_key, "face_encoder": t2j._face_encoder_key}
+
+
+def test_port_imports_no_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import stableanimator_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "stableanimator_tpu"))
+        print(len(names), bad)
+        assert len(names) >= 20, names
+        assert not bad, bad
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animation.build_models(**micro_model_kwargs())
+    models = animation.build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu")
+    ref, pose, face = torch.rand(1, 64, 64, 3), torch.rand(4, 64, 64, 3), torch.randn(1, 32)
+    cfg = PipelineConfig(num_frames=4, tile_size=4, tile_overlap=1, num_inference_steps=1,
+                         decode_chunk_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animation.generate(models, ref, pose, face, cfg)
+    frames = animation.generate(models, ref, pose, face, cfg, device="cpu")
+    assert frames.shape == (4, 64, 64, 3) and frames.device.type == "cpu"
+
+
+def _paths(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def micro_params():
+    jm = jax_build_models(**jax_micro_kwargs(), dtype=None, use_flash=False)
+    return fast_init_params(jm, height=64, width=64)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_jax_converters_invert_the_port_state_dict(micro_params, model):
+    port = animation.build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu",
+                                  seed=None)
+    module = getattr(port, model)
+    module.load_state_dict(state_dicts_from_jax(micro_params)[model], strict=True)
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    back = _paths(CONVERTERS[model](sd)["params"])
+    want = _paths(micro_params[model])
+    assert set(back) == set(want), (sorted(set(want) - set(back))[:5],
+                                    sorted(set(back) - set(want))[:5])
+    for path, arr in want.items():
+        np.testing.assert_array_equal(back[path], np.asarray(arr), err_msg=str(path))
+
+
+_PERMS = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def _flax_leaf(model, key, shape):
+    """(Flax path, Flax shape) of a torch parameter under the JAX package's
+    key and layout rules (convert/torch_to_jax.py)."""
+    path = KEY_RULES[model](key)
+    if path is None:
+        return None, None
+    if model == "clip" and key == "vision_model.embeddings.position_embedding.weight":
+        return path, tuple(shape)
+    leaf, _ = t2j._leaf(key, np.zeros((1,) * len(shape), np.float32))
+    if leaf is None:
+        return path, tuple(shape)
+    if leaf == "kernel":
+        shape = tuple(shape[i] for i in _PERMS[len(shape)])
+    return path + (leaf,), tuple(shape)
+
+
+def test_full_size_port_maps_onto_the_flax_trees():
+    jm = jax_build_models(dtype=None, use_flash=False)
+    flax = jax.eval_shape(lambda: init_params(jm, jax.random.PRNGKey(0), 64, 64, 2))
+    with torch.device("meta"):
+        port = animation.AnimationModels(
+            unet=animation.UNetSpatioTemporal(), vae=animation.AutoencoderKLTemporalDecoder(),
+            clip=animation.CLIPVisionModelWithProjection(), pose_net=animation.PoseNet(),
+            face_encoder=animation.FusionFaceId())
+    for model in MODELS:
+        want = {p: tuple(s.shape) for p, s in _paths(flax[model]).items()}
+        got, unmapped = {}, []
+        for key, p in getattr(port, model).state_dict().items():
+            path, shape = _flax_leaf(model, key, p.shape)
+            if path is None:
+                unmapped.append(key)
+            else:
+                got[path] = shape
+        assert not unmapped, (model, unmapped[:5])
+        assert set(got) == set(want), (model, sorted(set(want) - set(got))[:5],
+                                       sorted(set(got) - set(want))[:5])
+        bad = [(p, got[p], want[p]) for p in want if got[p] != want[p]]
+        assert not bad, (model, bad[:5])
