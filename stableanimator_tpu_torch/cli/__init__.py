@@ -1,0 +1,1 @@
+"""cli of the PyTorch port (see the package docstring)."""

@@ -233,6 +233,33 @@ class PipelineConfig:
     output_uint8: bool = False
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training contract rebuilt from command_train.sh:1-21 + README.md:285-363
+    (train.py is absent from the reference snapshot; this is the spec)."""
+
+    sample_n_frames: int = 16
+    per_device_batch_size: int = 1
+    learning_rate: float = 1e-5
+    lr_warmup_steps: int = 500
+    gradient_accumulation_steps: int = 1
+    num_train_epochs: int = 6000
+    max_train_steps: int = 0  # 0 = derive from epochs
+    checkpointing_steps: int = 2000
+    checkpoints_total_limit: int = 5000
+    validation_steps: int = 500
+    gradient_checkpointing: bool = True
+    mixed_precision: str = "bf16"  # "bf16" or "no" (fp32); the reference uses fp16
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    seed: int = 23123134
+    # face-masked reconstruction loss weight (mask regions get 1 + face_loss_weight)
+    face_loss_weight: float = 1.0
+
+
 def micro_model_kwargs() -> dict:
     """Depth-1 micro model-zoo kwargs for `pipeline.build_models`: same
     topology as the full stack (4-level UNet with CrossAttn/Down/Up blocks,

@@ -5,7 +5,8 @@ SVD's EulerDiscreteScheduler semantics: Karras rho-7 sigmas over
 [0.002, 700], continuous timestep t = 0.25 * ln(sigma), init noise sigma
 sqrt(sigma_max^2 + 1), model-input scaling x / sqrt(sigma^2 + 1), and the
 v-prediction Euler step. The tables are computed on the host exactly as
-the JAX package computes them; every step is fp32 tensor math.
+the JAX package computes them; every step is fp32 tensor math. Training
+adds the lognormal sigma draw and the EDM loss weight.
 """
 
 from __future__ import annotations
@@ -66,3 +67,33 @@ def step_euler(model_output, sample, sigma, sigma_next):
     s = sample.float()
     derivative = (s - x0) / sigma
     return (s + derivative * (sigma_next - sigma)).to(sample.dtype)
+
+
+def timestep_of_sigma(sigma: torch.Tensor) -> torch.Tensor:
+    """Continuous timestep fed to the UNet: c_noise = 0.25 * ln(sigma)."""
+    return 0.25 * torch.log(sigma)
+
+
+# ---------------------------------------------------------------------------
+# Training-side EDM math (the SVD/EDM formulation the reference's training
+# flags imply)
+# ---------------------------------------------------------------------------
+
+def sample_sigmas_lognormal(shape, cfg: SchedulerConfig | None = None, *,
+                            z: torch.Tensor | None = None,
+                            generator: torch.Generator | None = None,
+                            device: torch.device | str = "cpu") -> torch.Tensor:
+    """sigma ~ exp(N(p_mean, p_std)) as in EDM/SVD finetuning. `z` is the
+    standard-normal draw of `shape`; without it one is drawn from
+    `generator` on `device`."""
+    cfg = cfg or SchedulerConfig()
+    if z is None:
+        z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return torch.exp(cfg.p_mean + cfg.p_std * z.float())
+
+
+def edm_loss_weight(sigma: torch.Tensor) -> torch.Tensor:
+    """lambda(sigma) = (1 + sigma^2) / sigma^2 (EDM, sigma_data = 1) for a
+    loss expressed on x0_hat."""
+    sigma = sigma.float()
+    return (1.0 + sigma**2) / sigma**2

@@ -133,7 +133,12 @@ class IDCrossAttention(nn.Module):
             mean = t32.mean(dim=(1, 2), keepdim=True)
             mean_sq = t32.square().mean(dim=(1, 2), keepdim=True)
             var = (mean_sq - mean.square()).clamp_min(0.0) * (cnt / max(cnt - 1, 1))
-            return mean, torch.sqrt(var)
+            # sqrt with a zero gradient at var == 0: a stream that is exactly
+            # zero (both streams of a clip dropped by conditioning dropout)
+            # would otherwise meet sqrt's infinite slope and turn every
+            # gradient into NaN, as the JAX package's does. Same forward.
+            pos = var > 0
+            return mean, torch.where(pos, torch.sqrt(torch.where(pos, var, 1.0)), 0.0)
 
         mean_b, std_b = stats(base)
         mean_i, std_i = stats(ident)

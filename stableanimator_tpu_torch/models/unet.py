@@ -7,6 +7,17 @@ call (the uncond stream gets zero context and zero pose latents). The
 PoseNet residual is added right after `conv_in`. Parameter names follow
 diffusers' UNetSpatioTemporalConditionModel plus the ID adapter's
 `attn2.processor.id_to_{k,v}`.
+
+`remat=True` is gradient checkpointing: every SpatioTemporalResBlock and
+TransformerSpatioTemporalModel of the down, mid and up blocks runs under
+`torch.utils.checkpoint` (non-reentrant) when autograd records, keeping
+only its inputs and recomputing it in the backward. These are the
+boundaries where the JAX package rematerialises (its `_maybe_remat`). The
+JAX package also rematerialises each transformer block inside the
+TransformerSpatioTemporalModel; nesting a second checkpoint here would run
+the inner forward three times (attention included) for no memory the outer
+level does not already save, so the port takes the outer level only. The
+function computed is the same either way.
 """
 
 from __future__ import annotations
@@ -14,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stableanimator_tpu_torch.core.config import UNetConfig
 from stableanimator_tpu_torch.models.layers import (
@@ -29,6 +41,13 @@ from stableanimator_tpu_torch.models.layers import (
 from stableanimator_tpu_torch.models.transformer import TransformerSpatioTemporalModel
 
 
+def _run(remat: bool, module: nn.Module, *args, **kwargs):
+    """module(*args, **kwargs), checkpointed when `remat` and autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, **kwargs)
+    return module(*args, **kwargs)
+
+
 def _transformer(cfg: UNetConfig, ch: int, heads: int):
     return TransformerSpatioTemporalModel(
         heads, ch // heads, ch, cfg.cross_attention_dim,
@@ -41,8 +60,9 @@ class DownBlock(nn.Module):
     returns the output and the skip states it contributes."""
 
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, heads: int | None,
-                 eps: float, add_downsample: bool):
+                 eps: float, add_downsample: bool, remat: bool = False):
         super().__init__()
+        self.remat = remat
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
             SpatioTemporalResBlock(in_ch if j == 0 else out_ch, out_ch, temb, eps=eps)
@@ -56,9 +76,9 @@ class DownBlock(nn.Module):
     def forward(self, x, temb, context, num_frames):
         states = []
         for j, res in enumerate(self.resnets):
-            x = res(x, temb, num_frames=num_frames)
+            x = _run(self.remat, res, x, temb, num_frames=num_frames)
             if self.attentions is not None:
-                x = self.attentions[j](x, context, num_frames=num_frames)
+                x = _run(self.remat, self.attentions[j], x, context, num_frames=num_frames)
             states.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -69,8 +89,9 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     """resnet -> transformer -> resnet (eps 1e-5)."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ch, heads = cfg.block_out_channels[-1], cfg.num_attention_heads[-1]
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
@@ -78,9 +99,9 @@ class MidBlock(nn.Module):
         self.attentions = nn.ModuleList([_transformer(cfg, ch, heads)])
 
     def forward(self, x, temb, context, num_frames):
-        x = self.resnets[0](x, temb, num_frames=num_frames)
-        x = self.attentions[0](x, context, num_frames=num_frames)
-        return self.resnets[1](x, temb, num_frames=num_frames)
+        x = _run(self.remat, self.resnets[0], x, temb, num_frames=num_frames)
+        x = _run(self.remat, self.attentions[0], x, context, num_frames=num_frames)
+        return _run(self.remat, self.resnets[1], x, temb, num_frames=num_frames)
 
 
 class UpBlock(nn.Module):
@@ -88,8 +109,9 @@ class UpBlock(nn.Module):
     (+ nearest-2x upsample conv), resnet eps 1e-6."""
 
     def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs: list[int], out_ch: int,
-                 heads: int | None, add_upsample: bool):
+                 heads: int | None, add_upsample: bool, remat: bool = False):
         super().__init__()
+        self.remat = remat
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
             SpatioTemporalResBlock((in_ch if j == 0 else out_ch) + skip_chs[j], out_ch,
@@ -103,9 +125,9 @@ class UpBlock(nn.Module):
     def forward(self, x, skips, temb, context, num_frames):
         for j, res in enumerate(self.resnets):
             x = torch.cat([x, skips[len(skips) - 1 - j]], dim=-1)
-            x = res(x, temb, num_frames=num_frames)
+            x = _run(self.remat, res, x, temb, num_frames=num_frames)
             if self.attentions is not None:
-                x = self.attentions[j](x, context, num_frames=num_frames)
+                x = _run(self.remat, self.attentions[j], x, context, num_frames=num_frames)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -118,11 +140,13 @@ class UNetSpatioTemporal(nn.Module):
       context:        [B, 1 + num_id_tokens, cross_attention_dim]
       added_time_ids: [B, 3]  (fps-1, motion_bucket, noise_aug)
       pose_latents:   [B*F, h, w, block_out[0]] or None
-    returns           [B, F, h, w, out_channels] in the compute dtype."""
+    returns           [B, F, h, w, out_channels] in the compute dtype.
+    remat: gradient checkpointing of the blocks' resnets and transformers."""
 
-    def __init__(self, config: UNetConfig | None = None):
+    def __init__(self, config: UNetConfig | None = None, remat: bool = False):
         super().__init__()
         cfg = self.config = config or UNetConfig()
+        self.remat = remat
         ch = cfg.block_out_channels
         temb = cfg.time_embed_dim
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
@@ -135,16 +159,17 @@ class UNetSpatioTemporal(nn.Module):
         for i, block_type in enumerate(cfg.down_block_types):
             add_down = i < len(ch) - 1
             if block_type == "CrossAttnDownBlockSpatioTemporal":
-                blk = DownBlock(cfg, in_ch, ch[i], cfg.num_attention_heads[i], 1e-6, add_down)
+                blk = DownBlock(cfg, in_ch, ch[i], cfg.num_attention_heads[i], 1e-6, add_down,
+                                remat)
             elif block_type == "DownBlockSpatioTemporal":
-                blk = DownBlock(cfg, in_ch, ch[i], None, 1e-5, False)
+                blk = DownBlock(cfg, in_ch, ch[i], None, 1e-5, False, remat)
             else:
                 raise ValueError(block_type)
             self.down_blocks.append(blk)
             skip_chs += [ch[i]] * (cfg.layers_per_block + (blk.downsamplers is not None))
             in_ch = ch[i]
 
-        self.mid_block = MidBlock(cfg)
+        self.mid_block = MidBlock(cfg, remat)
 
         rev_ch = list(reversed(ch))
         rev_heads = list(reversed(cfg.num_attention_heads))
@@ -161,7 +186,7 @@ class UNetSpatioTemporal(nn.Module):
             else:
                 raise ValueError(block_type)
             self.up_blocks.append(UpBlock(cfg, in_ch, block_skips[::-1], rev_ch[i], heads,
-                                          i < len(ch) - 1))
+                                          i < len(ch) - 1, remat))
             in_ch = rev_ch[i]
 
         self.conv_norm_out = GroupNorm(32, ch[0], eps=1e-5)

@@ -1,20 +1,30 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash attention: the hand-written Hopper kernels and their plain
+versions.
 
-The kernel (`csrc/flash_attention_fwd.cu`) replaces the JAX package's
-Pallas kernel `stableanimator_tpu/ops/flash_attention.py::_fwd_kernel`. It
+Forward: `csrc/flash_attention_fwd.cu` replaces the JAX package's Pallas
+kernel `stableanimator_tpu/ops/flash_attention.py::_fwd_kernel`. It
 computes softmax((q * scale) k^T) v over [B, S, H, D] tensors with the TPU
 kernel's rounding: q is scaled in fp32 and rounded to the input dtype,
 softmax statistics and the accumulator are fp32, and P is rounded to the
 input dtype before P.V. `with_lse` also returns the fp32 log-sum-exp
 [B, Sq, H].
 
-`flash_attention` launches the kernel for a CUDA tensor (bf16/fp16, head
-dim 64 or 512) and raises on anything else; for a CPU tensor it computes
-the plain version, `flash_attention_reference`, which is the same function
-written with dense PyTorch ops (it materialises the S x S logits).
-`kernel_tolerance` bounds how far a correct kernel's output may lie from
-the plain version's.
+Backward: `csrc/flash_attention_bwd.cu` replaces `_bwd_dkv_kernel` and
+`_bwd_dq_kernel` (driven there by `_flash_bwd`): from q, k, v, the output
+o, its lse and the output gradient dO it computes, in fp32,
+P = exp(s - lse), dP = dO V^T, delta = sum(dO * o), dS = P * (dP - delta),
+dK = dS^T (scale q), dV = P^T dO and dQ = scale (dS K), with q * scale not
+rounded (unlike the forward). Head dim 64 only.
+
+`flash_attention` is differentiable: when autograd needs its gradient it
+goes through `FlashAttentionFunction`, whose forward keeps the lse and whose
+backward is `flash_attention_bwd`. Otherwise (inference) it calls the
+forward directly. CUDA tensors go to the kernels, CPU tensors to the plain
+versions `flash_attention_reference` / `flash_attention_bwd_reference`,
+the same functions written with dense PyTorch ops (they materialise the
+S x S logits); any other device raises. `kernel_tolerance` and
+`grad_tolerance` bound how far a correct kernel's outputs may lie from the
+plain versions'.
 """
 
 from __future__ import annotations
@@ -30,15 +40,23 @@ from stableanimator_tpu_torch.ops import build
 
 KERNEL_NAME = "flash_attention_fwd"
 HEAD_DIMS = (64, 512)
+# the backward kernels: one source, two kernels
+BWD_SOURCE = "flash_attention_bwd"
+DKV_KERNEL = "flash_attention_bwd_dkv"
+DQ_KERNEL = "flash_attention_bwd_dq"
+BWD_HEAD_DIMS = (64,)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def _default_scale(q: torch.Tensor, scale: float | None) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float | None = None, with_lse: bool = False):
     """The kernel's exact function in plain PyTorch. q [B, Sq, H, D];
     k, v [B, Sk, H, D]. Returns o [B, Sq, H, D] (and lse [B, Sq, H] fp32)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _default_scale(q, scale)
     qs = (q.float() * scale).to(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     m = s.amax(dim=-1, keepdim=True)
@@ -51,6 +69,36 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if with_lse:
         return o, (m + torch.log(l)).squeeze(-1).permute(0, 2, 1).contiguous()
     return o
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = sum over the head dim of dO * o, fp32 [B, Sq, H]."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale: float | None = None):
+    """The backward kernels' exact function in plain PyTorch (the JAX
+    package's `_flash_bwd`): q, o, dO [B, Sq, H, D]; k, v [B, Sk, H, D];
+    lse [B, Sq, H] fp32. Everything in fp32, q * scale not rounded; returns
+    (dq, dk, dv) in the input dtypes."""
+    scale = _default_scale(q, scale)
+    qs = q.float() * scale
+    dof = do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    p = s.sub_(lse.float().permute(0, 2, 1)[..., None]).exp_()        # in place: S is large
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = dp.sub_(attention_delta(o, do).permute(0, 2, 1)[..., None]).mul_(p)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    del p
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _tolerance(ref: torch.Tensor, rms_share: float) -> torch.Tensor:
+    eps = torch.finfo(ref.dtype).eps
+    r = ref.float()
+    return eps * r.abs() + rms_share * eps * r.square().mean().sqrt()
 
 
 def kernel_tolerance(ref: torch.Tensor) -> torch.Tensor:
@@ -66,14 +114,31 @@ def kernel_tolerance(ref: torch.Tensor) -> torch.Tensor:
     hold an online-softmax emulation of the kernel inside this bound and
     faulty ones (a kv tile dropped or mis-weighted, a bf16 P.V accumulator)
     outside it."""
-    eps = torch.finfo(ref.dtype).eps
-    r = ref.float()
-    return eps * r.abs() + 2.0 * eps * r.square().mean().sqrt()
+    return _tolerance(ref, 2.0)
+
+
+def grad_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel gradient - ref| for `ref`, one of the
+    plain backward's bf16/fp16 gradients (dq, dk or dv) on the same inputs.
+
+    The kernels feed P and dS, which are fp32, to the 16-bit tensor cores
+    as a sum of two 16-bit parts (hi = round(x), lo = round(x - hi)), so
+    each product is exact to about eps^2 relative, and they accumulate in
+    fp32 in another order than the plain version. Their fp32 gradients
+    therefore differ from the plain version's by far less than one output
+    ulp, and after both round to the 16-bit dtype by at most one ulp
+    (eps * |ref|, eps 2^-7 bf16, 2^-10 fp16). The bound adds eps/4 of the
+    gradient's rms for the fp32 differences near a rounding boundary and
+    for elements near zero. The CPU tests hold an emulation of the kernels'
+    tiling and rounding inside it, and faults outside it: a q tile dropped
+    from dK/dV, delta left out, the scale applied twice, and P and dS
+    rounded to a single 16-bit part."""
+    return _tolerance(ref, 0.25)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """Build (first use only) and bind the C entry point."""
+    """Build (first use only) and bind the forward's C entry point."""
     lib = ctypes.CDLL(str(build.build_kernel(KERNEL_NAME)))
     fn = lib.sa_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -82,21 +147,42 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels() -> dict:
+    """Build (first use only) and bind the backward's two C entry points.
+    Both take (q, k, v, dO, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d,
+    strides[21], scale, stream); dkv leaves dq null, dq leaves dk, dv null."""
+    lib = ctypes.CDLL(str(build.build_kernel(BWD_SOURCE)))
+    fns = {}
+    for name, symbol in ((DKV_KERNEL, "sa_flash_attention_bwd_dkv"),
+                         (DQ_KERNEL, "sa_flash_attention_bwd_dq")):
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be [B, S, H, D], got {tuple(t.shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dim must be contiguous")
+    if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: strides must be multiples of 8 elements and "
+                         "the data 16-byte aligned")
+
+
 def _check_cuda_inputs(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"flash_attention kernel takes bf16/fp16, {name} is {t.dtype}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be [B, S, H, D], got {tuple(t.shape)}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: last dim must be contiguous")
-        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides must be multiples of 8 elements and "
-                             "the data 16-byte aligned")
+        _check_layout(name, t, q.dtype)
     b, sq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -107,18 +193,17 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"unsupported sizes q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None, with_lse: bool = False):
-    """Flash attention over [B, S, H, D] tensors (forward only).
+def _device_of(q: torch.Tensor, what: str) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    return q.device.type
 
-    CUDA tensors go to the Hopper kernel, launched on the current stream
-    without synchronising; CPU tensors to the plain version."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+
+def _flash_forward(q, k, v, scale: float, with_lse: bool):
+    """The forward kernel for a CUDA tensor (launched on the current stream
+    without synchronising), its plain version for a CPU tensor."""
+    if _device_of(q, "flash_attention") == "cpu":
         return flash_attention_reference(q, k, v, scale, with_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -139,12 +224,120 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, lse) if with_lse else o
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float | None = None):
+    """Gradients (dq, dk, dv) of flash attention, from the forward's inputs,
+    its output o and lse, and the output gradient dO.
+
+    CUDA tensors go to the two Hopper kernels (dK/dV, then dQ), launched on
+    the current stream without synchronising; CPU tensors to the plain
+    version. Head dim 64 only, on every device."""
+    scale = _default_scale(q, scale)
+    d = q.shape[-1]
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash-attention backward for head dim {d}: the kernels take {BWD_HEAD_DIMS}. "
+            "The d = 512 backward (the VAE decoder's mid attention, which face "
+            "optimisation backpropagates through) comes with ROADMAP queue 1 item 9")
+    if _device_of(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+    grads, launch = bwd_launchers(q, k, v, o, lse, do, scale)
+    for name in (DKV_KERNEL, DQ_KERNEL):
+        launch[name]()
+    return grads
+
+
+def bwd_launchers(q, k, v, o, lse, do, scale: float):
+    """Checks the CUDA inputs, computes delta and allocates dq, dk, dv;
+    returns them and, by kernel name, a callable that launches that kernel
+    into them (and counts the launch). `flash_attention_bwd` calls both;
+    a benchmark can time each alone."""
+    _check_cuda_inputs(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernels take head dims {BWD_HEAD_DIMS}, got {d}")
+    do = do.contiguous()
+    for name, t in (("o", o), ("dO", do)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not match q "
+                             f"{tuple(q.shape)} on {q.device}")
+    _check_layout("dO", do, q.dtype)
+    if lse.shape != (b, sq, h) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [B, Sq, H], got {lse.dtype} {tuple(lse.shape)}")
+    lse = lse.contiguous()
+    delta = attention_delta(o, do).contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 21)(*(st for t in (q, k, v, do, dq, dk, dv)
+                                         for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fns = _bwd_kernels()
+
+    def launcher(name, outs):
+        def launch():
+            err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), *outs,
+                            _DTYPE_CODES[q.dtype], b, sq, sk, h, d, strides, float(scale),
+                            stream)
+            if err != 0:
+                raise RuntimeError(f"{name} launch failed: cudaError {err} "
+                                   f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
+            flash_attention_bwd.launches[name] += 1
+            flash_attention_bwd.launches_by_shape[(name, (b, sq, sk, h, d))] += 1
+        return launch
+
+    return (dq, dk, dv), {DKV_KERNEL: launcher(DKV_KERNEL, (None, dk.data_ptr(), dv.data_ptr())),
+                          DQ_KERNEL: launcher(DQ_KERNEL, (dq.data_ptr(), None, None))}
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention under autograd (the JAX package's custom VJP
+    `_flash_attention_core`): the forward runs with lse and keeps q, k, v,
+    o and lse; the backward is `flash_attention_bwd`. Returns (o, lse);
+    lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        o, lse = _flash_forward(q, k, v, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None, with_lse: bool = False):
+    """Flash attention over [B, S, H, D] tensors, differentiable in q, k, v.
+
+    When autograd records (grad enabled and an input requires grad) the call
+    goes through `FlashAttentionFunction`; otherwise straight to the
+    forward kernel (CUDA) or its plain version (CPU)."""
+    scale = _default_scale(q, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = FlashAttentionFunction.apply(q, k, v, scale)
+        return (o, lse) if with_lse else o
+    return _flash_forward(q, k, v, scale, with_lse)
+
+
 def reset_launch_counts() -> None:
+    """Zero the forward's and the backward's launch counters."""
     flash_attention.launches = 0
     flash_attention.launches_by_shape.clear()
+    flash_attention_bwd.launches.clear()
+    flash_attention_bwd.launches_by_shape.clear()
 
 
-# kernel launches since the last reset, in all and by (B, Sq, Sk, H, D);
-# the CPU path does not count
+# kernel launches since the last reset; the CPU path does not count.
+# forward: in all and by (B, Sq, Sk, H, D); backward: by kernel name and by
+# (kernel name, (B, Sq, Sk, H, D))
 flash_attention.launches = 0
 flash_attention.launches_by_shape = collections.Counter()
+flash_attention_bwd.launches = collections.Counter()
+flash_attention_bwd.launches_by_shape = collections.Counter()

@@ -113,15 +113,15 @@ def build_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None =
                  face_cfg: FaceEncoderConfig | None = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda",
-                 seed: int | None = 0) -> AnimationModels:
+                 seed: int | None = 0, remat: bool = False) -> AnimationModels:
     """Build the five models on `device`, parameters filled from `seed`
     (`fill_parameters`) or left uninitialised for a checkpoint load when
-    seed is None. Parameters are stored in `dtype` except the fp32 islands:
-    norm affines, AlphaBlender mixes and the VAE encoder + quant_conv."""
+    seed is None. Parameters are stored in `dtype` except the fp32 islands
+    (`cast_models`). `remat` turns on the UNet's gradient checkpointing."""
     device = resolve_device(device)
     with torch.device("meta"):
         models = AnimationModels(
-            unet=UNetSpatioTemporal(unet_cfg or UNetConfig()),
+            unet=UNetSpatioTemporal(unet_cfg or UNetConfig(), remat=remat),
             vae=AutoencoderKLTemporalDecoder(vae_cfg or VAEConfig()),
             clip=CLIPVisionModelWithProjection(clip_cfg or CLIPVisionConfig()),
             pose_net=PoseNet(pose_cfg or PoseNetConfig()),
@@ -132,6 +132,12 @@ def build_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None =
         if seed is not None:
             fill_parameters(m, seed + i)
         m.eval().requires_grad_(False)
+    return cast_models(models, dtype)
+
+
+def cast_models(models: AnimationModels, dtype: torch.dtype) -> AnimationModels:
+    """Store the parameters in `dtype`, except the fp32 islands: norm
+    affines, AlphaBlender mixes, and the VAE encoder + quant_conv."""
     for m in (models.unet, models.vae.decoder, models.clip, models.pose_net,
               models.face_encoder):
         cast_compute(m, dtype)

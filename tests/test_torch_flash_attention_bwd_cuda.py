@@ -1,0 +1,77 @@
+"""The port's CUDA flash-attention backward kernels against the plain
+backward, on the card, at the training step's shapes (UNet levels 0 and 1,
+16 frames) and ragged ones; and the autograd route through them.
+
+Imports neither JAX nor the test configuration, so it runs on a machine
+with the GPU and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_bwd_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from stableanimator_tpu_torch.ops import flash_attention as fa
+from stableanimator_tpu_torch.ops.attention import plain_attention
+
+SHAPES = [((16, 4096, 5, 64), 4096, torch.bfloat16),
+          ((16, 1024, 10, 64), 1024, torch.bfloat16),
+          ((1, 300, 2, 64), 300, torch.bfloat16),
+          ((1, 300, 2, 64), 300, torch.float16),
+          ((2, 640, 2, 64), 576, torch.bfloat16),
+          ((2, 640, 2, 64), 576, torch.float16)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full fp32
+
+
+def _inputs(shape, sk, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, h, d = shape
+
+    def randn(s):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+
+    return randn(sq), randn(sk), randn(sk), randn(sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sk,dtype", SHAPES)
+def test_cuda_backward_kernels_match_plain_version(shape, sk, dtype):
+    _card()
+    q, k, v, do = _inputs(shape, sk, dtype, seed=0)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    before = dict(fa.flash_attention_bwd.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name in (fa.DKV_KERNEL, fa.DQ_KERNEL):
+        assert fa.flash_attention_bwd.launches[name] == before.get(name, 0) + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(((g.float() - w.float()).abs() <= fa.grad_tolerance(w)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_output_carries_its_gradient():
+    # the forward's output on the card has a grad_fn, and its gradients are
+    # the plain version's (they were silently lost before the autograd route)
+    _card()
+    q, k, v, do = _inputs((2, 1024, 5, 64), 1024, torch.bfloat16, seed=1)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*qkv)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, qkv, do)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)     # what the route saved
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        assert bool(((g.float() - w.float()).abs() <= fa.grad_tolerance(w)).all())
+    # and they agree with fp32 autograd through the plain attention to within
+    # the bf16 forward's rounding (a few bf16 ulps of the largest gradient)
+    qkv32 = [t.float().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(plain_attention(*qkv32), qkv32, do.float())
+    for g, w in zip(got, plain):
+        assert (g.float() - w).abs().max().item() <= 0.05 * w.abs().max().item()

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port (`stableanimator_tpu_torch`):
 
-  (a) the port and chip_smoke.py load no jax, flax or JAX-package module;
+  (a) the port and chip_smoke.py load no jax, flax, optax, orbax or
+      JAX-package module;
   (b) its entry points default to CUDA and raise without it, unless the
       caller asks for the CPU;
   (c) the JAX package's converters, applied to the port's state dicts,
@@ -47,7 +48,8 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "stableanimator_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                            "stableanimator_tpu"))
         print(len(names), bad)
         assert len(names) >= 20, names
         assert not bad, bad
@@ -70,6 +72,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         animation.generate(models, ref, pose, face, cfg)
     frames = animation.generate(models, ref, pose, face, cfg, device="cpu")
     assert frames.shape == (4, 64, 64, 3) and frames.device.type == "cpu"
+    from stableanimator_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--checkpoint_dir", "none", "--output_dir", "none",
+                    "--data_root_path", "none"])
 
 
 def _paths(tree, prefix=()):
