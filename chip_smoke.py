@@ -8,23 +8,35 @@ the card.
 
 Phases, in order (any failure exits nonzero; no phase's exception is caught):
   device   card name and power limit (nvidia-smi); TF32 stated and set off
-  build    builds the flash-attention forward and backward kernels from
-           csrc/ with nvcc, one process per source, in parallel
-  kernels  the forward kernel against its plain PyTorch version, with and
-           without lse, at both main paths' full shapes in bf16 and at
-           ragged and fp16 shapes; the backward kernels (through the
-           autograd Function) against the plain backward within
-           `grad_tolerance` at the training shapes and ragged bf16/fp16
-           ones; then every kernel timed with CUDA events at the paths'
-           shapes beside its bound, its plain version and the PyTorch
-           library call
+  build    builds the flash-attention kernels (streamed forward, resident
+           forward, backward) from csrc/ with nvcc, one process per source,
+           in parallel
+  kernels  the streamed forward kernel against its plain PyTorch version,
+           with and without lse, at the main paths' full shapes in bf16 and
+           at ragged and fp16 shapes; the resident forward kernel against
+           the plain version (lse too) and against the streamed kernel at
+           the UNet's generate and training shapes and ragged bf16/fp16
+           ones; the backward kernels (through the autograd Function)
+           against the plain backward within `grad_tolerance` at the
+           training shapes and ragged bf16/fp16 ones; then every kernel
+           timed with CUDA events at the paths' shapes beside its bound, its
+           plain version and the PyTorch library call (the resident one
+           beside the streamed one too)
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
            seeded weights: one warm-up request, one timed request; output
            shape / range and the kernel launch counts are asserted; the
            timed request's launches, counted by shape, weight the forward
-           kernel's per-request times
+           kernel's per-request times; then the resident A/B: the same
+           request with SA_TPU_RESIDENT_KV_MAX_BYTES at 0 and at 4 MiB in
+           turns (0, 4 MiB, 4 MiB, 0), each route's launches asserted
+  longvideo the inference CLI (`cli.animate.main`, in this process) at full
+           width on 64 seeded 512x512 pose PNGs, 25 steps, with the resident
+           budget at 4 MiB: 5 tiles in groups of 1 and 5-step segments; the
+           exit, the files written, 5 progress lines, the resident and
+           streamed launches (10 x 5 x steps and 4) and the 4 calls the
+           card's capacity sent to the streamed kernel are asserted
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
            one warm-up step and three timed steps through make_train_step;
@@ -34,6 +46,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   profile  one more request and one more training step under
            torch.profiler: device time by kernel category, the busiest
            kernels, and the device's busy share
+The phases run in the order generate (with its profile and the A/B),
+longvideo, train.
 Before the last line it prints one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -42,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -54,13 +70,20 @@ import torch
 # published peaks of one H100 SXM at 700 W: dense bf16 FLOP/s, HBM bytes/s
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 FWD_KERNEL, BWD_SOURCE = "flash_attention_fwd", "flash_attention_bwd"
+RES_KERNEL = "flash_attention_resident"
 DKV_KERNEL, DQ_KERNEL = "flash_attention_bwd_dkv", "flash_attention_bwd_dq"
+KERNELS = (FWD_KERNEL, RES_KERNEL, DKV_KERNEL, DQ_KERNEL)
 REPLACES = {FWD_KERNEL: "stableanimator_tpu/ops/flash_attention.py:70",
+            RES_KERNEL: "stableanimator_tpu/ops/flash_attention.py:125",
             DKV_KERNEL: "stableanimator_tpu/ops/flash_attention.py:326",
             DQ_KERNEL: "stableanimator_tpu/ops/flash_attention.py:372"}
 SOURCES = {FWD_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_fwd.cu",
+           RES_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_resident.cu",
            DKV_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_bwd.cu",
            DQ_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_bwd.cu"}
+# the resident route's budget in the longvideo phase and the A/B: every
+# UNet attention of a request passes the JAX package's test at 4 MiB
+RESIDENT_BUDGET = 4 * 1024 * 1024
 # the forward kernel's shapes on the main paths, [B, S, H, D]: generate's
 # UNet levels 0 and 1 (CFG x 16 frames) and VAE decoder mid block, and the
 # training step's UNet levels 0 and 1 (16 frames), which ask for the lse
@@ -71,6 +94,17 @@ PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("train_level1", (16, 1024, 10, 64), True))
 # the backward kernels' shapes on the training path
 TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)))
+# the resident kernel's checks: (label, q shape, kv length, dtype, with lse);
+# generate's and the 64-frame request's UNet levels (timed too), the
+# training shapes with lse, and tests/test_ops.py's ragged shapes
+RESIDENT_CHECKS = (("unet_level0", (32, 4096, 5, 64), 4096, torch.bfloat16, False),
+                   ("unet_level1", (32, 1024, 10, 64), 1024, torch.bfloat16, False),
+                   ("train_level0", (16, 4096, 5, 64), 4096, torch.bfloat16, True),
+                   ("train_level1", (16, 1024, 10, 64), 1024, torch.bfloat16, True),
+                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.bfloat16, True),
+                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.float16, True),
+                   ("small_256", (2, 256, 2, 64), 256, torch.bfloat16, True))
+RESIDENT_TIMED = ("unet_level0", "unet_level1")
 # further forward checks: the d=512 instantiation in fp16, ragged sequences
 EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), torch.float16),
                 ("ragged_576", (2, 576, 20, 64), torch.bfloat16),
@@ -81,9 +115,11 @@ BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16),
                     ("ragged_300", (1, 300, 2, 64), 300, torch.float16),
                     ("ragged_640_576", (2, 640, 2, 64), 576, torch.bfloat16),
                     ("ragged_640_576", (2, 640, 2, 64), 576, torch.float16))
-ALL_PHASES = ("device", "build", "kernels", "small", "generate", "train", "profile")
+ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "train",
+              "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_kernel"),
+              ("flash_attention_resident", r"flash_resident_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
               ("conv", r"conv|cudnn|fprop|dgrad|wgrad|implicit_convolve|winograd"),
@@ -113,8 +149,12 @@ SMALL_TRAIN_RTOL, SMALL_TRAIN_LR = 1e-4, 1e-4
 # recomputation in the backward) and backward once; nothing else launches
 # a kernel (the VAE encode is fp32, CLIP's 257 tokens and UNet level 2 take
 # the plain path)
-TRAIN_LAUNCHES = {FWD_KERNEL: 20, DKV_KERNEL: 10, DQ_KERNEL: 10}
+TRAIN_LAUNCHES = {FWD_KERNEL: 20, RES_KERNEL: 0, DKV_KERNEL: 10, DQ_KERNEL: 10}
 TRAIN_TIMED_STEPS = 3
+# the long-video request: 64 frames at tile 16 / overlap 4 are 5 tiles,
+# denoised in groups of 1 (UNet batch 2 x 16, as the flat request's) and
+# 5-step segments; decoded in 4 groups of 16 frames
+LONGVIDEO_FRAMES, LONGVIDEO_TILES, LONGVIDEO_DECODE_GROUPS = 64, 5, 4
 
 
 def log(*args):
@@ -158,9 +198,9 @@ def phase_build():
     from stableanimator_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc per source
-        paths = dict(zip((FWD_KERNEL, BWD_SOURCE),
-                         pool.map(build.build_kernel, (FWD_KERNEL, BWD_SOURCE))))
+    sources = (FWD_KERNEL, RES_KERNEL, BWD_SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        paths = dict(zip(sources, pool.map(build.build_kernel, sources)))
     log(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log_file = path.with_suffix(".log")
@@ -200,6 +240,37 @@ def _check(lbl, q, k, v) -> float:
         f"{LSE_ATOL} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{FWD_KERNEL} disagrees with its plain version at {lbl}")
+    return err
+
+
+def _check_resident(lbl, q, k, v, with_lse) -> float:
+    """The resident kernel, with and without lse, against the plain version
+    and against the streamed kernel; returns the largest absolute error of
+    its output against the plain version."""
+    from stableanimator_tpu_torch.ops import flash_attention as fa
+
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, with_lse=True)
+    streamed = fa._flash_forward(q, k, v, 1.0 / q.shape[-1] ** 0.5, False)
+    o = fa.flash_attention_resident(q, k, v)
+    o2, lse = fa.flash_attention_resident(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    err = share = 0.0
+    for out in (o, o2):
+        diff = (out.float() - ref_o.float()).abs()
+        err = max(err, diff.max().item())
+        share = max(share, (diff / fa.kernel_tolerance(ref_o)).max().item())
+    vs_streamed = (o.float() - streamed.float()).abs()
+    share_streamed = (vs_streamed / fa.kernel_tolerance(streamed)).max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = share <= 1.0 and share_streamed <= 1.0 and err_lse <= LSE_ATOL
+    log(f"[kernels] resident {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]} "
+        f"(cluster {fa.resident_cluster_size(k.shape[1])}, lse checked, path with_lse="
+        f"{with_lse}): max|o-ref| {err:.3e}, {share:.3f} of the bound; vs the streamed kernel "
+        f"max {vs_streamed.max().item():.3e}, {share_streamed:.3f} of its bound; max|lse-ref| "
+        f"{err_lse:.3e} tol {LSE_ATOL} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{RES_KERNEL} disagrees with its plain version or the streamed kernel "
+                         f"at {lbl}")
     return err
 
 
@@ -275,13 +346,18 @@ def phase_kernels():
         flash_attention_reference,
     )
 
-    max_err = {FWD_KERNEL: 0.0, DKV_KERNEL: 0.0, DQ_KERNEL: 0.0}
+    from stableanimator_tpu_torch.ops.flash_attention import flash_attention_resident
+
+    max_err = {name: 0.0 for name in KERNELS}
     for lbl, shape, dtype in EXTRA_CHECKS:
         max_err[FWD_KERNEL] = max(max_err[FWD_KERNEL],
                                   _check(lbl, *_qkv(shape, dtype, seed=len(lbl))))
-    torch.cuda.empty_cache()
+    for lbl, shape, sk, dtype, with_lse in RESIDENT_CHECKS:
+        max_err[RES_KERNEL] = max(max_err[RES_KERNEL], _check_resident(
+            lbl, *_qkv(shape, dtype, seed=len(lbl) + 1, sk=sk), with_lse))
+        torch.cuda.empty_cache()
 
-    rows = {FWD_KERNEL: [], DKV_KERNEL: [], DQ_KERNEL: []}
+    rows = {name: [] for name in KERNELS}
     for lbl, shape, with_lse in PATH_SHAPES:
         b, s, h, d = shape
         q, k, v = _qkv(shape, torch.bfloat16, seed=7)
@@ -302,6 +378,13 @@ def phase_kernels():
             f"ms ({row['tflops']:.0f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}), plain "
             f"{plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
         rows[FWD_KERNEL].append((lbl, row))
+        if lbl in RESIDENT_TIMED:
+            res_ms = cuda_ms(lambda: flash_attention_resident(q, k, v), iters=20)
+            rows[RES_KERNEL].append((lbl, dict(row, ms=res_ms, streamed_ms=ms,
+                                               tflops=flops / res_ms / 1e9)))
+            log(f"[kernels] {RES_KERNEL} {lbl} {tuple(shape)} bf16: kernel {res_ms:.3f} ms "
+                f"({flops / res_ms / 1e9:.0f} TFLOP/s), streamed kernel {ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({bound_by}), plain {plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -468,13 +551,169 @@ def phase_generate(steps: int):
 
 
 def _launch_counts() -> dict:
-    """Launches since the last reset, by kernel, and by (kernel, shape)."""
-    from stableanimator_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    """Launches since the last reset, by kernel, and by (kernel, shape); and
+    the calls the resident route's capacity test refused."""
+    from stableanimator_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_resident,
+    )
 
-    counts = {FWD_KERNEL: flash_attention.launches, **flash_attention_bwd.launches}
+    counts = {FWD_KERNEL: flash_attention.launches,
+              RES_KERNEL: flash_attention_resident.launches,
+              DKV_KERNEL: flash_attention_bwd.launches[DKV_KERNEL],
+              DQ_KERNEL: flash_attention_bwd.launches[DQ_KERNEL]}
     by_shape = {(FWD_KERNEL, key): n for key, n in flash_attention.launches_by_shape.items()}
+    by_shape.update({(RES_KERNEL, key): n
+                     for key, n in flash_attention_resident.launches_by_shape.items()})
     by_shape.update(flash_attention_bwd.launches_by_shape)
-    return {"by_kernel": counts, "by_shape": by_shape}
+    return {"by_kernel": counts, "by_shape": by_shape,
+            "refused": flash_attention_resident.refused}
+
+
+@contextlib.contextmanager
+def _resident_budget(nbytes: int):
+    """SA_TPU_RESIDENT_KV_MAX_BYTES set to `nbytes` inside the block (the
+    port reads it at every call), restored after."""
+    from stableanimator_tpu_torch.ops.flash_attention import RESIDENT_BUDGET_ENV
+
+    before = os.environ.get(RESIDENT_BUDGET_ENV)
+    os.environ[RESIDENT_BUDGET_ENV] = str(nbytes)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[RESIDENT_BUDGET_ENV]
+        else:
+            os.environ[RESIDENT_BUDGET_ENV] = before
+
+
+def phase_ab(models, cfg, ref, pose, face):
+    """The flat 16-frame request with the resident budget at 0 (streamed
+    kernel) and at 4 MiB (resident kernel at UNet levels 0 and 1), in turns
+    0, 4 MiB, 4 MiB, 0; each run's launches asserted."""
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import generate
+
+    steps = cfg.num_inference_steps
+    expected = {0: {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0},
+                RESIDENT_BUDGET: {FWD_KERNEL: 1, RES_KERNEL: 10 * steps}}
+    times = {0: [], RESIDENT_BUDGET: []}
+    for budget in (0, RESIDENT_BUDGET, RESIDENT_BUDGET, 0):
+        with _resident_budget(budget):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            generate(models, ref, pose, face, cfg, device="cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = _launch_counts()
+        got = {k: counts["by_kernel"][k] for k in (FWD_KERNEL, RES_KERNEL)}
+        log(f"[ab] budget {budget} B: {sec:.3f} s, launches {got}, refused {counts['refused']}")
+        if got != expected[budget]:
+            raise SystemExit(f"A/B at budget {budget}: launches {got}, expected {expected[budget]}")
+        times[budget].append(sec)
+    mean = {b: sum(t) / len(t) for b, t in times.items()}
+    log(f"[ab] flat {cfg.num_frames}-frame request: streamed route (budget 0) "
+        f"{', '.join(f'{t:.3f}' for t in times[0])} s, mean {mean[0]:.3f} s; resident route "
+        f"(budget {RESIDENT_BUDGET}) {', '.join(f'{t:.3f}' for t in times[RESIDENT_BUDGET])} s, "
+        f"mean {mean[RESIDENT_BUDGET]:.3f} s; resident / streamed "
+        f"{mean[RESIDENT_BUDGET] / mean[0]:.4f}")
+
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to the real stdout."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def _write_longvideo_inputs(root: str, n_frames: int, hw: int):
+    """A seeded reference image and `n_frames` pose PNGs (a moving figure of
+    filled boxes on black), at hw x hw."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 255, (hw, hw, 3), dtype=np.uint8)).save(
+        os.path.join(root, "reference.png"))
+    poses = os.path.join(root, "poses")
+    os.makedirs(poses)
+    boxes = rng.integers(0, hw // 2, (6, 4))
+    colours = rng.integers(64, 255, (6, 3))
+    for i in range(n_frames):
+        img = np.zeros((hw, hw, 3), np.uint8)
+        shift = int(hw / 4 * np.sin(2 * np.pi * i / n_frames))
+        for (y, x, dy, dx), c in zip(boxes, colours):
+            y0, x0 = hw // 4 + y // 2, (hw // 4 + x // 2 + shift) % (hw - 40)
+            img[y0:y0 + 8 + dy // 4, x0:x0 + 8 + dx // 4] = c
+        Image.fromarray(img).save(os.path.join(poses, f"frame_{i}.png"))
+    return os.path.join(root, "reference.png"), poses
+
+
+def phase_longvideo(steps: int):
+    """`cli.animate.main` at full width on a 64-frame 512x512 request with the
+    resident budget at 4 MiB; counts and outputs asserted."""
+    import numpy as np
+    from PIL import Image
+
+    from stableanimator_tpu_torch.cli import animate
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    hw = 512
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, poses = _write_longvideo_inputs(tmp, LONGVIDEO_FRAMES, hw)
+        out = os.path.join(tmp, "out")
+        argv = ["--checkpoint_dir", os.path.join(tmp, "nockpt"), "--reference_image", ref,
+                "--pose_control_folder", poses, "--output_dir", out, "--height", str(hw),
+                "--width", str(hw), "--num_inference_steps", str(steps), "--allow_random_init",
+                "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _resident_budget(RESIDENT_BUDGET):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_Tee()) as printed:
+                info = animate.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        progress = [ln for ln in printed.getvalue().splitlines() if "denoise step" in ln]
+        names = sorted(os.listdir(os.path.join(out, "animated_images")))
+        frames = np.stack([np.asarray(Image.open(os.path.join(out, "animated_images", n)))
+                           for n in names])
+        with Image.open(os.path.join(out, "animation_video.gif")) as gif:
+            gif_frames = gif.n_frames
+        mp4_bytes = os.path.getsize(os.path.join(out, "animation_video.mp4"))
+    sec = info["seconds"]
+    res_expected = 10 * LONGVIDEO_TILES * steps
+    got = {k: counts["by_kernel"][k] for k in KERNELS}
+    log(f"[longvideo] cli {LONGVIDEO_FRAMES} frames {hw}x{hw}, {steps} steps: request "
+        f"{sec:.2f} s, {LONGVIDEO_FRAMES / sec:.3f} frames/s; phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in info["phases"].items())
+        + f"; main() {wall:.1f} s in all (model build, pose PNGs, outputs); peak "
+        f"{peak_gb:.1f} GiB; warm {info['warm']}; launches {got}, refused {counts['refused']} "
+        "(by (B, Sq, Sk, H, D) " + ", ".join(f"{k}: {n}" for k, n in counts["by_shape"].items())
+        + f"); {len(progress)} progress lines; {len(names)} PNGs {frames.shape} mean "
+        f"{frames.mean():.3f} std {frames.std():.3f}, frame-to-frame std "
+        f"{frames.astype(np.float32).std(axis=0).mean():.3f}; gif {gif_frames} frames, mp4 "
+        f"{mp4_bytes} bytes")
+    checks = {
+        "64 PNGs of 512x512x3": frames.shape == (LONGVIDEO_FRAMES, hw, hw, 3),
+        "gif of 64 frames, mp4 written": gif_frames == LONGVIDEO_FRAMES and mp4_bytes > 0,
+        "frames not constant": frames.std() > 1.0
+        and frames.astype(np.float32).std(axis=0).mean() > 0.0,
+        "one progress line per 5-step segment": len(progress) == -(-steps // 5),
+        f"{res_expected} resident launches": got[RES_KERNEL] == res_expected,
+        f"{LONGVIDEO_DECODE_GROUPS} streamed launches": got[FWD_KERNEL] == LONGVIDEO_DECODE_GROUPS,
+        f"{LONGVIDEO_DECODE_GROUPS} refused": counts["refused"] == LONGVIDEO_DECODE_GROUPS,
+        "no backward launches": got[DKV_KERNEL] == got[DQ_KERNEL] == 0,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the 64-frame CLI request failed its checks: {failed}")
+    return dict(seconds=sec, wall=wall, phases=info["phases"], peak_gib=peak_gb, **counts)
 
 
 def phase_train():
@@ -640,18 +879,20 @@ def profile_generate(models, cfg, ref, pose, face):
              lambda: generate(models, ref, pose, face, cfg, device="cuda"))
 
 
-def _kernel_entries(max_err, rows, gen, train) -> list:
+def _kernel_entries(max_err, rows, gen, longvideo, train) -> list:
     """The JSON line's entries: each kernel's times at its shapes, weighted
     by the launches the main paths made at those shapes (generate's timed
-    request and one timed training step)."""
+    request, the 64-frame CLI request and one timed training step)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
+    if longvideo:
+        paths["longvideo"] = longvideo["by_shape"]
     if train:
         paths["train"] = train["steps"][-1]["by_shape"]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     entries = []
-    for name in (FWD_KERNEL, DKV_KERNEL, DQ_KERNEL):
+    for name in KERNELS:
         by_key = {}
         for _, r in rows[name]:
             b, s, h, d = r["shape"]
@@ -678,13 +919,13 @@ def _kernel_entries(max_err, rows, gen, train) -> list:
             "bound_by": ("operations" if all(r["bound_by"] == "operations" for _, r in rows[name])
                          else "bytes"),
             "library_ms": total["library_ms"],
-            "per_request_of": "sum over the launches of generate's timed request and of one "
-                              "timed training step",
+            "per_request_of": "sum over the launches of generate's timed request, of the "
+                              "64-frame CLI request and of one timed training step",
             "per_path": per_path,
-            "library_of": ("scaled_dot_product_attention" if name == FWD_KERNEL else
-                           "scaled_dot_product_attention's backward (fwd+bwd less fwd), which "
-                           "computes dq, dk and dv together"),
-            "plain_of": ("flash_attention_reference" if name == FWD_KERNEL else
+            "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
+                           else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
+                           "which computes dq, dk and dv together"),
+            "plain_of": ("flash_attention_reference" if name in (FWD_KERNEL, RES_KERNEL) else
                          "flash_attention_bwd_reference, which computes dq, dk and dv together"),
             "shapes": {lbl: r for lbl, r in rows[name]},
         })
@@ -702,13 +943,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import stableanimator_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from stableanimator_tpu_torch.ops.flash_attention import RESIDENT_BUDGET_ENV
 
+    # the resident route is off (the port's default) except where a phase
+    # turns it on: the streamed kernel's checks and timings, generate and
+    # train run the default route
+    os.environ.pop(RESIDENT_BUDGET_ENV, None)
     t_start = time.perf_counter()
     if "device" in phases:
         phase_device()
     if "build" in phases:
         phase_build()
-    gen = train = None
+    gen = longvideo = train = None
     if "kernels" in phases:
         max_err, rows = phase_kernels()
     if "small" in phases:
@@ -717,7 +963,11 @@ def main() -> int:
         gen, state = phase_generate(args.steps)
         if "profile" in phases:
             profile_generate(*state)
+        phase_ab(*state)
         del state
+        torch.cuda.empty_cache()
+    if "longvideo" in phases:
+        longvideo = phase_longvideo(args.steps)
         torch.cuda.empty_cache()
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()
@@ -728,7 +978,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_cli()
     if "kernels" in phases:
-        log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, train)}))
+        log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train)}))
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,237 @@
+"""Inference CLI (port of the JAX package's `cli/animate.py`): the reference's
+`inference_basic.py` surface (flags mirror inference_basic.py:81-213 /
+command_basic_infer.sh), on one device.
+
+    python -m stableanimator_tpu_torch.cli.animate --checkpoint_dir ckpt \\
+        --reference_image ref.png --pose_control_folder poses \\
+        --output_dir out [--device cuda]
+
+Layout of --checkpoint_dir (the reference's state dicts as .npz, in the
+reference's key space; `convert/checkpoints.py::load_state_dicts`):
+  unet.npz            StableAnimator unet.pth (or SVD unet + --init_id_adapter)
+  vae.npz             SVD vae
+  image_encoder.npz   SVD image_encoder (CLIP ViT-H)
+  pose_net.npz        StableAnimator pose_net.pth
+  face_encoder.npz    StableAnimator face_encoder.pth
+Missing files keep seeded random weights with --allow_random_init. Without
+the antelopev2 ONNX files the identity embedding is zero, as in the JAX
+package.
+
+The noise is drawn from a torch.Generator on the device seeded --seed, so a
+run does not reproduce the JAX package's jax.random noise for the same seed.
+
+Not ported yet, and raising NotImplementedError with the ROADMAP item that
+brings it: --driving_video_folder (inline DWPose, queue 1 item 11),
+--face_optimize_steps > 0 (face optimisation, item 9), and the antelopev2
+ONNX face model when its files are present (item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="StableAnimator inference (PyTorch port)")
+    p.add_argument("--checkpoint_dir", type=str, required=True,
+                   help="directory of .npz checkpoints (see module docstring)")
+    p.add_argument("--reference_image", type=str, required=True)
+    p.add_argument("--pose_control_folder", type=str, default=None,
+                   help="folder of pre-rendered pose skeleton images (the "
+                        "reference's two-script flow: run the skeleton "
+                        "extraction CLI first)")
+    p.add_argument("--driving_video_folder", type=str, default=None,
+                   help="folder of RAW driving frames for inline DWPose "
+                        "extraction (not ported yet: ROADMAP queue 1 item 11)")
+    p.add_argument("--dwpose_dir", type=str, default=None,
+                   help="dir with yolox_l.onnx + dw-ll_ucoco_384.onnx "
+                        "(default: <checkpoint_dir>/DWPose)")
+    p.add_argument("--max_persons", type=int, default=None,
+                   help="per-frame person cap for inline DWPose extraction")
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--height", type=int, default=768)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--guidance_scale", type=float, default=3.0)
+    p.add_argument("--num_inference_steps", type=int, default=25)
+    p.add_argument("--tile_size", type=int, default=16)
+    p.add_argument("--frames_overlap", type=int, default=4)
+    p.add_argument("--noise_aug_strength", type=float, default=0.02)
+    p.add_argument("--decode_chunk_size", type=int, default=4)
+    p.add_argument("--max_tile_batch", type=int, default=0,
+                   help="max temporal tiles per UNet call; 0 = auto (all tiles "
+                        "batched for short videos; past 4 tiles groups of 2, or "
+                        "of 1 for an odd tile count)")
+    p.add_argument("--steps_per_dispatch", type=int, default=0,
+                   help="max Euler steps per segment; 0 = auto (one stretch for "
+                        "short videos, segments of at most 5 steps past 4 "
+                        "tiles, with progress lines), -1 = one stretch")
+    p.add_argument("--fps", type=int, default=7)
+    p.add_argument("--motion_bucket_id", type=int, default=127)
+    p.add_argument("--seed", type=int, default=23123134)
+    p.add_argument("--allow_random_init", action="store_true",
+                   help="keep seeded random weights for any missing checkpoint (smoke runs)")
+    p.add_argument("--model_scale", type=str, default="full", choices=["full", "micro"],
+                   help="'micro' = depth-1 tiny model zoo (same topology, one "
+                        "resnet/transformer layer per block, fp32) for smoke "
+                        "runs; pairs with --allow_random_init")
+    p.add_argument("--face_channel_order", type=str, default="reference",
+                   choices=["reference", "standard"],
+                   help="'reference' replicates the reference's channel-swap "
+                        "quirk (cv2.imread BGR + RGB2BGR = RGB fed to "
+                        "insightface; inference_basic.py:517-519), which the "
+                        "released checkpoints were trained against; "
+                        "'standard' feeds the recogniser RGB")
+    p.add_argument("--face_optimize_steps", type=int, default=0,
+                   help="HJB face-optimisation steps per denoise step (0 = off; "
+                        "not ported yet: ROADMAP queue 1 item 9)")
+    p.add_argument("--face_opt_lr", type=float, default=0.1)
+    p.add_argument("--face_opt_start_step", type=int, default=8)
+    p.add_argument("--init_id_adapter", action="store_true",
+                   help="initialise id_to_k/id_to_v from SVD to_k/to_v when "
+                        "loading a vanilla SVD unet (reference "
+                        "inference_basic.py:372-377)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def _check_ported(args) -> None:
+    """Raise for the options the port does not cover yet."""
+    if bool(args.pose_control_folder) == bool(args.driving_video_folder):
+        raise SystemExit("pass exactly one of --pose_control_folder (pre-rendered "
+                         "skeletons) or --driving_video_folder (raw frames)")
+    if args.driving_video_folder:
+        raise NotImplementedError("--driving_video_folder (inline DWPose extraction) is not "
+                                  "ported yet: ROADMAP queue 1 item 11")
+    if args.face_optimize_steps > 0:
+        raise NotImplementedError("--face_optimize_steps (HJB face optimisation) is not "
+                                  "ported yet: ROADMAP queue 1 item 9")
+    antelope = os.path.join(args.checkpoint_dir, "antelopev2")
+    if all(os.path.exists(os.path.join(antelope, f))
+           for f in ("scrfd_10g_bnkps.onnx", "glintr100.onnx")):
+        raise NotImplementedError(f"the antelopev2 ONNX face model ({antelope}) is not "
+                                  "ported yet: ROADMAP queue 1 item 11; move it away to run "
+                                  "with the zero identity embedding")
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"num_frames", "seconds", "phases", "warm"}."""
+    args = parse_args(argv)
+    _check_ported(args)
+
+    from PIL import Image
+
+    from stableanimator_tpu_torch.convert.checkpoints import load_state_dicts
+    from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import (
+        build_models,
+        generate,
+        resolve_device,
+        warm_generate,
+    )
+    from stableanimator_tpu_torch.utils.image import (
+        export_to_gif,
+        export_to_mp4,
+        frames_to_uint8,
+        load_images_from_folder,
+        pil_to_u8_array,
+        poses_to_u8_array,
+        save_frames_as_png,
+    )
+
+    device = resolve_device(args.device)
+    model_kwargs = dict(dtype=torch.bfloat16, device=device)
+    if args.model_scale == "micro":
+        # the .npz checkpoints are full-size; micro is for smoke runs
+        model_kwargs.update(micro_model_kwargs(), dtype=torch.float32)
+    models = build_models(**model_kwargs)
+    load_state_dicts(args.checkpoint_dir, models, args.allow_random_init,
+                     init_id_adapter=args.init_id_adapter)
+
+    ref_pil = Image.open(args.reference_image).convert("RGB")
+    ref_pil_sized = ref_pil.resize((args.width, args.height))
+    # the frame count from the listing alone, so the warm starts before any
+    # pose pixel is read
+    num_frames = len([f for f in os.listdir(args.pose_control_folder) if f.endswith(".png")])
+    if num_frames == 0:
+        raise SystemExit(f"no .png frames in {args.pose_control_folder}")
+    print(f"{num_frames} frames at {args.width}x{args.height}")
+
+    cfg = PipelineConfig(
+        height=args.height, width=args.width, num_frames=num_frames,
+        tile_size=args.tile_size, tile_overlap=args.frames_overlap,
+        num_inference_steps=args.num_inference_steps,
+        min_guidance_scale=args.guidance_scale, max_guidance_scale=args.guidance_scale,
+        fps=args.fps, motion_bucket_id=args.motion_bucket_id,
+        noise_aug_strength=args.noise_aug_strength,
+        decode_chunk_size=args.decode_chunk_size,
+        max_tile_batch="auto" if args.max_tile_batch == 0 else args.max_tile_batch,
+        steps_per_dispatch=("auto" if args.steps_per_dispatch == 0 else
+                            None if args.steps_per_dispatch < 0 else args.steps_per_dispatch),
+        output_uint8=True,
+    )
+
+    # the antelopev2 face model is not ported (_check_ported raised if present)
+    print("WARNING: antelopev2 ONNX models missing; using zero identity embedding")
+    emb = np.zeros((1, models.face_encoder.config.id_embeddings_dim), np.float32)
+
+    # the warm (kernel builds) on a thread while the pose PNGs load; it
+    # executes nothing, so the request's kernel launches are its own
+    warm_info: dict = {}
+
+    def _warm():
+        try:
+            t = time.time()
+            warm_info.update(warm_generate(models, cfg, device=device,
+                                           clip_shape=(ref_pil.height, ref_pil.width),
+                                           execute=False))
+            warm_info["seconds"] = round(time.time() - t, 1)
+        except BaseException as e:  # re-raised on the main thread after the join
+            warm_info["error"] = e
+
+    warm_thread = threading.Thread(target=_warm, daemon=True)
+    warm_thread.start()
+    pose_u8 = poses_to_u8_array(load_images_from_folder(args.pose_control_folder,
+                                                        width=args.width, height=args.height))
+    warm_thread.join()
+    if "error" in warm_info:
+        raise warm_info["error"]
+    print(f"graph warm: {warm_info['path']} path, {warm_info['programs']} program(s) in "
+          f"{warm_info['seconds']}s (overlapped with preprocessing)")
+
+    timings: dict = {}
+    t0 = time.time()
+    frames = generate(
+        models, torch.tensor(pil_to_u8_array(ref_pil_sized)), torch.from_numpy(pose_u8),
+        torch.from_numpy(emb), cfg,
+        # CLIP conditions on the original-resolution image (reference
+        # inference_pipeline_animation.py:520)
+        clip_image=torch.tensor(pil_to_u8_array(ref_pil)),
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        device=device, timings=timings,
+        progress=lambda done, total: print(f"  denoise step {done}/{total} dispatched",
+                                           flush=True))
+    frames = frames.cpu().numpy()
+    seconds = time.time() - t0
+    print(f"generated {num_frames} frames in {seconds:.1f}s ("
+          + ", ".join(f"{k} {v:.2f}s" for k, v in timings.items()) + ")")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    u8 = frames_to_uint8(frames)
+    export_to_gif(u8, os.path.join(args.output_dir, "animation_video.gif"))
+    # the reference names its artifact animation_video.mp4 and writes it at
+    # 8 fps (inference_basic.py:560-562)
+    export_to_mp4(u8, os.path.join(args.output_dir, "animation_video.mp4"), fps=8)
+    save_frames_as_png(u8, os.path.join(args.output_dir, "animated_images"))
+    print(f"wrote {args.output_dir}/animation_video.{{gif,mp4}}")
+    return {"num_frames": num_frames, "seconds": seconds, "phases": timings,
+            "warm": {k: v for k, v in warm_info.items() if k != "error"}}
+
+
+if __name__ == "__main__":
+    main()

@@ -16,6 +16,24 @@ P = exp(s - lse), dP = dO V^T, delta = sum(dO * o), dS = P * (dP - delta),
 dK = dS^T (scale q), dV = P^T dO and dQ = scale (dS K), with q * scale not
 rounded (unlike the forward). Head dim 64 only.
 
+Resident forward: `csrc/flash_attention_resident.cu` replaces
+`_fwd_kernel_resident` (driven there by `_flash_fwd_resident`): the same
+function and rounding as the streamed forward, with the K and V of one
+(batch, head) read from device memory once into the shared memory of a
+thread-block cluster and reused by every q tile. Head dim 64 only.
+`_flash_forward` routes a call to it when two tests pass:
+  (a) the JAX package's test, unchanged (`_use_resident`): one head step's
+      padded K columns, kv_pad * heads_per_step * d * itemsize, fit the
+      budget `SA_TPU_RESIDENT_KV_MAX_BYTES` (default 0, so off), read at
+      call time so that one process can run both routes;
+  (b) the card's capacity: d is 64 and the K and V of one head, padded to
+      64-row chunks, fit one cluster of at most 8 CTAs at 128 KiB each
+      (the kernel stores 16-bit values: Sk <= 4096).
+A call that passes (a) and not (b) goes to the streamed kernel and is
+counted in `flash_attention_resident.refused`; this is a routing rule (the
+VAE decoder's 512-wide head, 8 MiB of K and V, fits no cluster), not a
+fallback from a failure.
+
 `flash_attention` is differentiable: when autograd needs its gradient it
 goes through `FlashAttentionFunction`, whose forward keeps the lse and whose
 backward is `flash_attention_bwd`. Otherwise (inference) it calls the
@@ -33,6 +51,7 @@ import collections
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -45,6 +64,15 @@ BWD_SOURCE = "flash_attention_bwd"
 DKV_KERNEL = "flash_attention_bwd_dkv"
 DQ_KERNEL = "flash_attention_bwd_dq"
 BWD_HEAD_DIMS = (64,)
+# the resident forward: kv in 64-row chunks, at most 8 chunks (128 KiB of K
+# and V at 16 bits) per CTA, at most 8 CTAs (the portable cluster size) per
+# (batch, head)
+RESIDENT_KERNEL = "flash_attention_resident"
+RESIDENT_HEAD_DIMS = (64,)
+RESIDENT_CHUNK = 64
+RESIDENT_CHUNKS_PER_CTA = 8
+RESIDENT_MAX_CLUSTER = 8
+RESIDENT_BUDGET_ENV = "SA_TPU_RESIDENT_KV_MAX_BYTES"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 
 
@@ -164,6 +192,92 @@ def _bwd_kernels() -> dict:
     return fns
 
 
+@functools.lru_cache(maxsize=None)
+def _resident_kernel():
+    """Build (first use only) and bind the resident forward's C entry point:
+    the streamed one's arguments with the cluster size after d."""
+    lib = ctypes.CDLL(str(build.build_kernel(RESIDENT_KERNEL)))
+    fn = lib.sa_flash_attention_resident
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# routing between the streamed and the resident forward
+# ---------------------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pick_blocks(q_len: int, kv_len: int, hd: int = 64) -> tuple[int, int]:
+    """The JAX package's VMEM-budgeted (block_q, block_k) (copy of
+    `ops/flash_attention.py::_pick_blocks`); test (a) pads kv to block_k."""
+    if hd <= 512:
+        bq, bk = 512, 1024
+    elif hd <= 1024:
+        bq, bk = 256, 1024
+    else:
+        bq, bk = 256, 512
+    return min(bq, _round_up(q_len, 128)), min(bk, _round_up(kv_len, 128))
+
+
+def _resident_heads_per_step(h: int, d: int) -> tuple[int, int]:
+    """(heads_per_step, padded head count) of the JAX resident kernel (copy
+    of `_resident_heads_per_step`): d = 64 heads go in pairs."""
+    if d % 128 == 0:
+        return 1, h
+    if 128 % d == 0:
+        per = 128 // d
+        return per, -(-h // per) * per
+    return h, h
+
+
+def resident_kv_budget() -> int:
+    """The resident route's budget in bytes, read now from
+    SA_TPU_RESIDENT_KV_MAX_BYTES (default 0: the route is off)."""
+    return int(os.environ.get(RESIDENT_BUDGET_ENV, 0))
+
+
+def passes_resident_budget(q_shape, k_shape, itemsize: int, budget: int | None = None) -> bool:
+    """Test (a), the JAX package's `_use_resident`: one head step's padded
+    K columns, kv_pad * heads_per_step * d * itemsize, fit the budget."""
+    d = q_shape[-1]
+    heads_per_step, _ = _resident_heads_per_step(q_shape[2], d)
+    kv_pad = _round_up(k_shape[1], _pick_blocks(q_shape[1], k_shape[1], heads_per_step * d)[1])
+    budget = resident_kv_budget() if budget is None else budget
+    return kv_pad * heads_per_step * d * itemsize <= budget
+
+
+def resident_cluster_size(sk: int) -> int | None:
+    """CTAs per (batch, head) for `sk` keys: the fewest (1, 2, 4 or 8) whose
+    128 KiB shares hold K and V; None when 8 do not."""
+    n_chunks = -(-sk // RESIDENT_CHUNK)
+    c = 1
+    while c <= RESIDENT_MAX_CLUSTER:
+        if -(-n_chunks // c) <= RESIDENT_CHUNKS_PER_CTA:
+            return c
+        c *= 2
+    return None
+
+
+def fits_resident_cluster(q_shape, k_shape) -> bool:
+    """Test (b), the card's capacity: d is 64 and one head's K and V, at the
+    kernel's 16 bits and padded to 64-row chunks, fit one cluster."""
+    return q_shape[-1] in RESIDENT_HEAD_DIMS and resident_cluster_size(k_shape[1]) is not None
+
+
+def resident_route(q_shape, k_shape, itemsize: int, budget: int | None = None) -> str:
+    """"resident" when tests (a) and (b) pass, "refused" when (a) passes and
+    (b) does not (the call then takes the streamed kernel), else
+    "streamed"."""
+    if not passes_resident_budget(q_shape, k_shape, itemsize, budget):
+        return "streamed"
+    return "resident" if fits_resident_cluster(q_shape, k_shape) else "refused"
+
+
 def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
@@ -200,10 +314,17 @@ def _device_of(q: torch.Tensor, what: str) -> str:
 
 
 def _flash_forward(q, k, v, scale: float, with_lse: bool):
-    """The forward kernel for a CUDA tensor (launched on the current stream
-    without synchronising), its plain version for a CPU tensor."""
+    """A forward kernel for a CUDA tensor (launched on the current stream
+    without synchronising), the plain version for a CPU tensor. CUDA calls
+    take the resident kernel when `resident_route` says so; the others the
+    streamed kernel."""
     if _device_of(q, "flash_attention") == "cpu":
         return flash_attention_reference(q, k, v, scale, with_lse)
+    route = resident_route(q.shape, k.shape, q.element_size())
+    if route == "resident":
+        return flash_attention_resident(q, k, v, scale, with_lse)
+    if route == "refused":
+        flash_attention_resident.refused += 1
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -221,6 +342,43 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     flash_attention.launches += 1
     flash_attention.launches_by_shape[(b, sq, k.shape[1], h, d)] += 1
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_resident(q, k, v, scale: float | None = None, with_lse: bool = False):
+    """The resident-K/V forward: the streamed forward's function, with K and
+    V of each (batch, head) read once into a cluster's shared memory.
+
+    A CUDA tensor goes to the kernel (launched on the current stream without
+    synchronising); a shape it does not take (d other than 64, more than
+    4096 keys) raises. A CPU tensor gets the plain version,
+    `flash_attention_reference`."""
+    scale = _default_scale(q, scale)
+    if _device_of(q, "flash_attention_resident") == "cpu":
+        return flash_attention_reference(q, k, v, scale, with_lse)
+    _check_cuda_inputs(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    cluster = resident_cluster_size(sk)
+    if d not in RESIDENT_HEAD_DIMS or cluster is None:
+        raise ValueError(f"the resident kernel takes head dims {RESIDENT_HEAD_DIMS} and at most "
+                         f"{RESIDENT_MAX_CLUSTER * RESIDENT_CHUNKS_PER_CTA * RESIDENT_CHUNK} keys, "
+                         f"got q {tuple(q.shape)} k {tuple(k.shape)}")
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _resident_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        _DTYPE_CODES[q.dtype], b, sq, sk, h, d, cluster,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{RESIDENT_KERNEL} launch failed: cudaError {err} "
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, cluster {cluster})")
+    flash_attention_resident.launches += 1
+    flash_attention_resident.launches_by_shape[(b, sq, sk, h, d)] += 1
     return (o, lse) if with_lse else o
 
 
@@ -327,17 +485,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def reset_launch_counts() -> None:
-    """Zero the forward's and the backward's launch counters."""
+    """Zero the forward kernels' and the backward's launch counters and the
+    resident route's refusals."""
     flash_attention.launches = 0
     flash_attention.launches_by_shape.clear()
+    flash_attention_resident.launches = 0
+    flash_attention_resident.launches_by_shape.clear()
+    flash_attention_resident.refused = 0
     flash_attention_bwd.launches.clear()
     flash_attention_bwd.launches_by_shape.clear()
 
 
 # kernel launches since the last reset; the CPU path does not count.
-# forward: in all and by (B, Sq, Sk, H, D); backward: by kernel name and by
-# (kernel name, (B, Sq, Sk, H, D))
+# forward (streamed and resident): in all and by (B, Sq, Sk, H, D);
+# backward: by kernel name and by (kernel name, (B, Sq, Sk, H, D)); and the
+# CUDA calls that passed the resident budget but not the card's capacity
 flash_attention.launches = 0
 flash_attention.launches_by_shape = collections.Counter()
+flash_attention_resident.launches = 0
+flash_attention_resident.launches_by_shape = collections.Counter()
+flash_attention_resident.refused = 0
 flash_attention_bwd.launches = collections.Counter()
 flash_attention_bwd.launches_by_shape = collections.Counter()

@@ -1,23 +1,33 @@
-"""The end-to-end animation pipeline, flat path (port of the JAX package's
-`pipeline/animation.py`).
+"""The end-to-end animation pipeline (port of the JAX package's
+`pipeline/animation.py`), on one device.
 
 `generate` runs, in order:
-  1. `encode_conditioning`: antialiased resize -> CLIP image tower,
-     FusionFaceId face tokens, fp32 VAE encode of the noise-augmented
-     reference image;
-  2. PoseNet, once per video;
-  3. `denoise`: one UNet call per Euler step carrying CFG x every tile,
+  1. `_prepare_denoise_state`: `encode_conditioning` (antialiased resize ->
+     CLIP image tower, FusionFaceId face tokens, fp32 VAE encode of the
+     noise-augmented reference image), PoseNet once per video, and the
+     initial noise;
+  2. `denoise`: Euler steps with CFG. Short videos (<= 4 tiles) carry every
+     tile in one UNet call per step; longer ones (`max_tile_batch`, "auto"
+     past 4 tiles) call the UNet once per group of tiles
+     (`_denoise_grouped`), so the UNet batch does not grow with the video;
      then the scatter-add tile blend and the guidance mix;
-  4. `decode_frames`: chunked temporal-VAE decode, chunks batched when the
+  3. `decode_frames`: chunked temporal-VAE decode, chunks batched when the
      video is small enough, else one chunk at a time.
 
-Inputs and outputs keep the JAX package's channels-last layouts. This slice
-covers videos of at most 4 tiles on one device; the grouped long-video
-path, face optimisation and the mesh raise NotImplementedError.
+Past 4 tiles (`resolve_steps_per_dispatch`) `generate` takes the segmented
+path (`_generate_segmented`): the Euler loop in segments of a few steps,
+with `progress(done, total)` after each, and the decode in groups of frames
+(`_decode_dispatched`). PyTorch runs eagerly, so a segment is a stretch of
+the same loop, not a program of its own; the segments and groups keep the
+JAX package's plan, and its numbers, all the same.
+
+Inputs and outputs keep the JAX package's channels-last layouts. Face
+optimisation and the mesh raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 from typing import NamedTuple
@@ -55,6 +65,8 @@ from stableanimator_tpu_torch.models.layers import FP32_MODULES, cast_compute
 from stableanimator_tpu_torch.models.pose_net import PoseNet
 from stableanimator_tpu_torch.models.unet import UNetSpatioTemporal
 from stableanimator_tpu_torch.models.vae import AutoencoderKLTemporalDecoder
+from stableanimator_tpu_torch.ops import build
+from stableanimator_tpu_torch.ops import flash_attention as fa
 from stableanimator_tpu_torch.ops.resize import resize_antialias
 
 DEFAULT_SEED = 23123134  # the reference's seed_everything default
@@ -181,26 +193,39 @@ def encode_conditioning(models: AnimationModels, ref_image, face_embedding,
 # ---------------------------------------------------------------------------
 
 def denoise(models: AnimationModels, latents, context, image_latents, add_time_ids,
-            pose_latents, schedule, cfg: PipelineConfig):
-    """Euler steps with CFG and every tile batched into one UNet call.
+            pose_latents, schedule, cfg: PipelineConfig, step_start: int = 0,
+            num_steps: int | None = None):
+    """Euler steps with CFG: steps [step_start, step_start + num_steps) of
+    `schedule` (all of them by default).
 
     latents [1, F, h, w, 4] fp32 (already scaled by the init sigma);
     context [2, 1+num_id, D]; image_latents [2, h, w, 4]; pose_latents
-    [F, h, w, c0]. Index 0 of the conditioning is the uncond stream."""
+    [F, h, w, c0]. Index 0 of the conditioning is the uncond stream. Every
+    tile goes into one UNet call per step, unless `max_tile_batch` (or its
+    "auto" policy) asks for groups of fewer tiles: `_denoise_grouped`."""
     f = latents.shape[1]
     device = latents.device
     tiles_np = tile_indices(f, cfg.tile_size, cfg.tile_overlap)
     n_tiles = tiles_np.shape[0]
-    tiles = torch.from_numpy(tiles_np.astype(np.int64)).to(device)
-    flat_idx = tiles.reshape(-1)
     weights_np = tile_blend_weight(cfg.tile_size)
     counts = np.zeros((f,), np.float32)
     np.add.at(counts, tiles_np.reshape(-1), np.tile(weights_np, n_tiles))
     counts_t = torch.from_numpy(counts).to(device)[:, None, None, None]
-    weights = torch.from_numpy(weights_np).to(device)[None, :, None, None, None]
     guidance = torch.linspace(cfg.min_guidance_scale, cfg.max_guidance_scale, f,
                               dtype=torch.float32, device=device)[:, None, None, None]
+    n_scan = schedule.timesteps.shape[0] if num_steps is None else num_steps
+    steps = range(step_start, step_start + n_scan)
 
+    mtb = (auto_tile_batch(f, cfg.tile_size, cfg.tile_overlap)
+           if cfg.max_tile_batch == "auto" else cfg.max_tile_batch)
+    if mtb is not None and mtb < n_tiles:
+        return _denoise_grouped(models, latents, context, image_latents, add_time_ids,
+                                pose_latents, schedule, mtb, tiles_np, weights_np, counts_t,
+                                guidance, steps)
+
+    tiles = torch.from_numpy(tiles_np.astype(np.int64)).to(device)
+    flat_idx = tiles.reshape(-1)
+    weights = torch.from_numpy(weights_np).to(device)[None, :, None, None, None]
     pose_tiles = pose_latents[flat_idx]
     pose_batch = torch.cat([torch.zeros_like(pose_tiles), pose_tiles], dim=0)
     ctx_batch = torch.cat([context[:1].expand(n_tiles, -1, -1),
@@ -214,7 +239,7 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
         acc.index_add_(0, flat_idx, tile_out.reshape((-1,) + tile_out.shape[2:]))
         return acc / counts_t
 
-    for i in range(schedule.timesteps.shape[0]):
+    for i in steps:
         sigma, sigma_next = schedule.sigmas[i], schedule.sigmas[i + 1]
         lat_in = scale_model_input(latents, sigma)
         x_tiles = lat_in[0][tiles]                         # [n, T, h, w, 4]
@@ -228,7 +253,72 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
         noise_uncond = blend(out[:n_tiles])
         noise_cond = blend(out[n_tiles:])
         noise_pred = noise_uncond + guidance * (noise_cond - noise_uncond)
-        latents = step_euler(noise_pred[None], latents, sigma, sigma_next)
+        latents = _advance_latents(latents, noise_pred, sigma, sigma_next)
+    return latents
+
+
+def _advance_latents(lat, noise_pred, sigma, sigma_next):
+    """One Euler update (the JAX package's, without face optimisation)."""
+    return step_euler(noise_pred[None], lat, sigma, sigma_next)
+
+
+def _denoise_grouped(models: AnimationModels, latents, context, image_latents, add_time_ids,
+                     pose_latents, schedule, group_size: int, tiles_np, weights_np, counts_t,
+                     guidance, steps):
+    """Long-video denoise: one UNet call per group of `group_size` tiles.
+
+    The math of the all-tiles path in `denoise` (each tile's UNet output is
+    weighted, scatter-added and count-normalised), with the UNet batch
+    bounded at 2 x group_size tiles, so device memory does not grow with
+    the video: the reference's per-tile loop (inference_pipeline_animation.py:
+    654-689), in groups. As in the JAX package, the tiles are padded to a
+    whole number of groups with zero-weight duplicates of the last tile, the
+    pose latents are gathered per group once, and each step gathers every
+    tile's input once and blends the stacked outputs with one scatter-add
+    per CFG stream."""
+    f = latents.shape[1]
+    device = latents.device
+    n_tiles, tile = tiles_np.shape
+    g = group_size
+    n_groups = -(-n_tiles // g)
+    pad = n_groups * g - n_tiles
+    tiles_p = np.concatenate([tiles_np, np.repeat(tiles_np[-1:], pad, axis=0)], axis=0)
+    mask = np.concatenate([np.ones((n_tiles,), np.float32), np.zeros((pad,), np.float32)])
+    mask = mask.reshape(n_groups, g)
+    flat_idx = torch.from_numpy(tiles_p.reshape(-1).astype(np.int64)).to(device)
+    # triangular blend weight x padding mask, [G, 2g, T, 1, 1, 1]
+    wm = np.concatenate([mask, mask], axis=1)[:, :, None] * weights_np[None, None, :]
+    wm = torch.from_numpy(wm).to(device)[..., None, None, None]
+
+    pose_groups = pose_latents[flat_idx].reshape((n_groups, g * tile) + pose_latents.shape[1:])
+    pose_uncond = torch.zeros_like(pose_groups[0])         # uncond drops the pose
+    ctx_pair = torch.cat([context[:1].expand(g, -1, -1), context[1:].expand(g, -1, -1)], dim=0)
+    ids_pair = torch.cat([add_time_ids[:1].expand(g, -1), add_time_ids[1:].expand(g, -1)], dim=0)
+    img_cond = image_latents[1]
+
+    for i in steps:
+        sigma, sigma_next = schedule.sigmas[i], schedule.sigmas[i + 1]
+        lat_in = scale_model_input(latents, sigma)[0]      # [F, h, w, 4]
+        x_groups = lat_in[flat_idx].reshape((n_groups, g, tile) + lat_in.shape[1:])
+        outs = []
+        for gi in range(n_groups):
+            x_t = x_groups[gi]                             # [g, T, h, w, 4]
+            img_c = img_cond.expand(x_t.shape[:-1] + img_cond.shape[-1:])
+            batch = torch.cat([torch.cat([x_t, torch.zeros_like(img_c)], dim=-1),
+                               torch.cat([x_t, img_c], dim=-1)], dim=0)   # [2g, T, h, w, 8]
+            pose_b = torch.cat([pose_uncond, pose_groups[gi]], dim=0)
+            out = models.unet(batch, schedule.timesteps[i], ctx_pair, ids_pair, pose_b).float()
+            outs.append(out * wm[gi])
+        outs = torch.stack(outs)                           # [G, 2g, T, h, w, 4]
+        frame_shape = (-1,) + outs.shape[3:]
+        acc_u = torch.zeros((f,) + outs.shape[3:], dtype=torch.float32, device=device)
+        acc_c = torch.zeros_like(acc_u)
+        acc_u.index_add_(0, flat_idx, outs[:, :g].reshape(frame_shape))
+        acc_c.index_add_(0, flat_idx, outs[:, g:].reshape(frame_shape))
+        noise_uncond = acc_u / counts_t
+        noise_cond = acc_c / counts_t
+        noise_pred = noise_uncond + guidance * (noise_cond - noise_uncond)
+        latents = _advance_latents(latents, noise_pred, sigma, sigma_next)
     return latents
 
 
@@ -258,6 +348,37 @@ def decode_frames(models: AnimationModels, latents, cfg: PipelineConfig):
     return output_uint8(frames) if cfg.output_uint8 else frames
 
 
+def _decode_group_size(cfg: PipelineConfig, f: int, h8: int, w8: int) -> int:
+    """Frames per dispatched decode group: a multiple of the decode chunk
+    sized by `batched_decode_max_latent_volume`."""
+    chunk = min(cfg.decode_chunk_size, f)
+    return chunk * max(1, cfg.batched_decode_max_latent_volume // max(chunk * h8 * w8, 1))
+
+
+def _decode_group(models: AnimationModels, latents, start: int, cfg: PipelineConfig,
+                  group: int):
+    """Decode `group` frames from frame `start`; returns (frames, start +
+    group). `group` is a multiple of decode_chunk_size, so the chunk
+    boundaries, and with them each chunk's temporal context, are those of
+    the one-call decode."""
+    return decode_frames(models, latents[:, start:start + group], cfg), start + group
+
+
+def _decode_dispatched(models: AnimationModels, latents, cfg: PipelineConfig):
+    """Decode a long video in groups of `_decode_group_size` frames, each one
+    batched VAE call; a short one in one `decode_frames`. The frames stay on
+    the device."""
+    f = latents.shape[1]
+    per = _decode_group_size(cfg, f, latents.shape[2], latents.shape[3])
+    if f <= per:
+        return decode_frames(models, latents, cfg)
+    outs, start = [], 0
+    while start < f:
+        out, start = _decode_group(models, latents, start, cfg, min(per, f - start))
+        outs.append(out)
+    return torch.cat(outs)
+
+
 # ---------------------------------------------------------------------------
 # full generation
 # ---------------------------------------------------------------------------
@@ -276,24 +397,15 @@ def _to_sym(x):
     return x
 
 
-def _check_slice(cfg: PipelineConfig, face_opt, mesh) -> None:
-    """Raise for what this slice of the port does not cover yet, naming the
-    ROADMAP item that brings it."""
+def _check_slice(face_opt, mesh) -> None:
+    """Raise for what the port does not cover yet, naming the ROADMAP item
+    that brings it."""
     if face_opt is not None:
         raise NotImplementedError("face optimisation (face_opt) is not ported yet: "
                                   "ROADMAP queue 1 item 9")
     if mesh is not None:
         raise NotImplementedError("multi-device generate (mesh) is not ported yet: "
                                   "ROADMAP queue 1 item 11")
-    n_tiles = tile_indices(cfg.num_frames, cfg.tile_size, cfg.tile_overlap).shape[0]
-    mtb = (auto_tile_batch(cfg.num_frames, cfg.tile_size, cfg.tile_overlap)
-           if cfg.max_tile_batch == "auto" else cfg.max_tile_batch)
-    spd = None if cfg.steps_per_dispatch == "auto" else cfg.steps_per_dispatch
-    if n_tiles > 4 or (mtb is not None and mtb < n_tiles) or spd is not None:
-        raise NotImplementedError(
-            f"{n_tiles} tiles (max_tile_batch={cfg.max_tile_batch}, steps_per_dispatch="
-            f"{cfg.steps_per_dispatch}): the grouped / segmented long-video path is not "
-            "ported yet: ROADMAP queue 1 item 8")
 
 
 def _mark(timings: dict | None, name: str | None, t0: float,
@@ -310,37 +422,16 @@ def _mark(timings: dict | None, name: str | None, t0: float,
     return t
 
 
-@torch.inference_mode()
-def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
-             cfg: PipelineConfig | None = None, *, clip_image=None, aug_noise=None,
-             init_noise=None, generator: torch.Generator | None = None,
-             face_opt=None, mesh=None, device: torch.device | str = "cuda",
-             timings: dict | None = None):
-    """Generate an animation (flat path: at most 4 tiles, one device).
-
-    ref_image:      [1, H, W, 3] fp32 in [0, 1], or uint8
-    pose_pixels:    [F, H, W, 3] fp32 in [-1, 1], or uint8
-    face_embedding: [1, id_dim] ArcFace embedding
-    clip_image:     optional [1, H0, W0, 3] for the CLIP branch
-    aug_noise:      optional [1, H, W, 3] standard-normal noise augmentation
-    init_noise:     optional [1, tile, H/8, W/8, 4] standard-normal initial
-                    tile noise (scaled by the init sigma here)
-    generator:      draws the noises not given; default a generator on the
-                    device seeded 23123134
-    timings:        optional dict that receives seconds per phase
-                    (conditioning, pose, denoise, decode)
-    returns frames  [F, H, W, 3] fp32 in [0, 1] (uint8 with cfg.output_uint8)
-    """
-    device = resolve_device(device)
-    models_device = next(models.unet.parameters()).device
-    if models_device.type != device.type:
-        raise ValueError(f"models are on {models_device}, generate asked for {device}")
-    cfg = cfg or PipelineConfig()
-    f = pose_pixels.shape[0]
-    cfg = dataclasses.replace(cfg, height=ref_image.shape[1], width=ref_image.shape[2],
-                              num_frames=f, tile_size=min(cfg.tile_size, f))
-    _check_slice(cfg, face_opt, mesh)
-
+def _prepare_denoise_state(models: AnimationModels, ref_image, pose_pixels, face_embedding,
+                           cfg: PipelineConfig, device: torch.device, *, clip_image=None,
+                           aug_noise=None, init_noise=None,
+                           generator: torch.Generator | None = None,
+                           timings: dict | None = None):
+    """Everything before the Euler loop: conditioning, pose latents and the
+    initial noise (one tile of noise, repeated over the video; reference
+    :586-597). Noises not given are drawn from `generator`, the augmentation
+    first. Returns (latents, context, image_latents, add_time_ids,
+    pose_latents), the state the denoise loop carries."""
     def dev(x):
         return None if x is None else torch.as_tensor(x).to(device)
 
@@ -363,17 +454,186 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
         aug_noise=dev(aug_noise).float())
     t0 = _mark(timings, "conditioning", t0, device)
     pose_latents = models.pose_net(pose_pixels).float()
-    t0 = _mark(timings, "pose", t0, device)
+    _mark(timings, "pose", t0, device)
 
-    schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
-    noise = dev(init_noise).float() * schedule.init_noise_sigma
+    f = pose_pixels.shape[0]
+    noise = dev(init_noise).float() * make_schedule(cfg.num_inference_steps).init_noise_sigma
     latents = noise.repeat(1, f // cfg.tile_size + 1, 1, 1, 1)[:, :f]
-    latents = denoise(models, latents, context, image_latents, add_time_ids,
-                      pose_latents, schedule, cfg)
+    return latents, context, image_latents, add_time_ids, pose_latents
+
+
+def _denoise_segment(models: AnimationModels, latents, context, image_latents, add_time_ids,
+                     pose_latents, cfg: PipelineConfig, step_start: int, num_steps: int):
+    """`num_steps` Euler steps from schedule index `step_start`; returns
+    (latents, step_start + num_steps)."""
+    schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=latents.device)
+    latents = denoise(models, latents, context, image_latents, add_time_ids, pose_latents,
+                      schedule, cfg, step_start=step_start, num_steps=num_steps)
+    return latents, step_start + num_steps
+
+
+def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd: int,
+                        device: torch.device, progress=None, timings: dict | None = None):
+    """The Euler loop of `state` (from `_prepare_denoise_state`) in segments
+    of `spd` steps, then `_decode_dispatched`. progress: optional
+    callable(done_steps, total_steps), called after each segment is
+    dispatched (the card may still be running it)."""
+    latents, context, image_latents, add_time_ids, pose_latents = state
+    t0 = _mark(timings, None, 0.0, device)
+    n = cfg.num_inference_steps
+    done = 0
+    while done < n:
+        latents, done = _denoise_segment(models, latents, context, image_latents, add_time_ids,
+                                         pose_latents, cfg, done, min(spd, n - done))
+        if progress is not None:
+            progress(done, n)
+    t0 = _mark(timings, "denoise", t0, device)
+    frames = _decode_dispatched(models, latents, cfg)
+    _mark(timings, "decode", t0, device)
+    return frames
+
+
+def resolve_steps_per_dispatch(cfg: PipelineConfig, face_opt_active: bool = False) -> int | None:
+    """The `PipelineConfig.steps_per_dispatch` "auto" policy (the JAX
+    package's): None (one stretch, the flat path) for videos of at most 4
+    tiles; past that, segments of max(1, min(5, budget // slots)) steps,
+    where slots is the tile slots per step (tiles padded to whole groups)
+    and the budget is 30 slots, 15 with face optimisation. An explicit
+    value wins."""
+    spd = cfg.steps_per_dispatch
+    if spd != "auto":
+        return spd
+    if cfg.num_frames <= cfg.tile_size:
+        return None
+    n_tiles = tile_indices(cfg.num_frames, cfg.tile_size, cfg.tile_overlap).shape[0]
+    if n_tiles <= 4:
+        return None
+    mtb = (auto_tile_batch(cfg.num_frames, cfg.tile_size, cfg.tile_overlap)
+           if cfg.max_tile_batch == "auto" else cfg.max_tile_batch)
+    slots_per_step = (-(-n_tiles // mtb) * mtb) if mtb else n_tiles
+    budget = 15 if face_opt_active else 30
+    return max(1, min(5, budget // slots_per_step))
+
+
+@torch.inference_mode()
+def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
+             cfg: PipelineConfig | None = None, *, clip_image=None, aug_noise=None,
+             init_noise=None, generator: torch.Generator | None = None,
+             face_opt=None, mesh=None, device: torch.device | str = "cuda",
+             timings: dict | None = None, progress=None):
+    """Generate an animation on one device.
+
+    ref_image:      [1, H, W, 3] fp32 in [0, 1], or uint8
+    pose_pixels:    [F, H, W, 3] fp32 in [-1, 1], or uint8
+    face_embedding: [1, id_dim] ArcFace embedding
+    clip_image:     optional [1, H0, W0, 3] for the CLIP branch
+    aug_noise:      optional [1, H, W, 3] standard-normal noise augmentation
+    init_noise:     optional [1, tile, H/8, W/8, 4] standard-normal initial
+                    tile noise (scaled by the init sigma here)
+    generator:      draws the noises not given; default a generator on the
+                    device seeded 23123134
+    timings:        optional dict that receives seconds per phase
+                    (conditioning, pose, denoise, decode)
+    progress:       optional callable(done_steps, total_steps), called after
+                    each segment when `resolve_steps_per_dispatch` sends the
+                    request to the segmented path (past 4 tiles by default)
+    returns frames  [F, H, W, 3] fp32 in [0, 1] (uint8 with cfg.output_uint8),
+                    on the device
+    """
+    device = resolve_device(device)
+    models_device = next(models.unet.parameters()).device
+    if models_device.type != device.type:
+        raise ValueError(f"models are on {models_device}, generate asked for {device}")
+    cfg = cfg or PipelineConfig()
+    f = pose_pixels.shape[0]
+    cfg = dataclasses.replace(cfg, height=ref_image.shape[1], width=ref_image.shape[2],
+                              num_frames=f, tile_size=min(cfg.tile_size, f))
+    _check_slice(face_opt, mesh)
+    spd = resolve_steps_per_dispatch(cfg)
+    state = _prepare_denoise_state(models, ref_image, pose_pixels, face_embedding, cfg, device,
+                                   clip_image=clip_image, aug_noise=aug_noise,
+                                   init_noise=init_noise, generator=generator, timings=timings)
+    if spd is not None:
+        return _generate_segmented(models, state, cfg, spd, device, progress, timings)
+    t0 = _mark(timings, None, 0.0, device)
+    schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
+    latents = denoise(models, *state, schedule, cfg)
     t0 = _mark(timings, "denoise", t0, device)
     frames = decode_frames(models, latents, cfg)
     _mark(timings, "decode", t0, device)
     return frames
+
+
+def _build_forward_kernels() -> list[str]:
+    """Build the flash-attention forward kernels a request may launch: the
+    streamed one, and the resident one when its budget is set. Returns
+    their names."""
+    names = [fa.KERNEL_NAME] + ([fa.RESIDENT_KERNEL] if fa.resident_kv_budget() > 0 else [])
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:   # one nvcc each
+        list(pool.map(build.build_kernel, names))
+    return names
+
+
+@torch.inference_mode()
+def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
+                  device: torch.device | str = "cuda", uint8_inputs: bool = True,
+                  clip_shape=None, execute: bool | str = "auto", face_opt=None, mesh=None):
+    """Prepare everything `generate` will need for `cfg` before the real
+    inputs exist, so that the caller's preprocessing overlaps it (run it on
+    a thread). cfg must carry the real height, width and num_frames.
+
+    On the card it builds the forward kernels the request may launch
+    (`_build_forward_kernels`, nvcc on first use). PyTorch compiles no
+    programs, so the JAX package's compile step has nothing to do here; what
+    remains is its plan: `programs` counts the JAX package's programs for
+    this request (prep, each distinct segment length, each distinct decode
+    group size; 1 for the flat path).
+
+    execute: "auto" or True run that plan once on zero inputs on the
+      segmented path (prep, one segment of each distinct length, one decode
+      group of each distinct size), which warms the allocator and the
+      libraries' kernel choices; False does not. The flat path never
+      executes.
+
+    Returns {"path", "programs", "executed", "face_opt"}, as the JAX
+    package's does."""
+    device = resolve_device(device)
+    _check_slice(face_opt, mesh)
+    if device.type == "cuda":
+        _build_forward_kernels()
+    cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, cfg.num_frames))
+    spd = resolve_steps_per_dispatch(cfg)
+    if spd is None:
+        return {"path": "flat", "programs": 1, "executed": False, "face_opt": False}
+
+    h, w, f = cfg.height, cfg.width, cfg.num_frames
+    n = cfg.num_inference_steps
+    seg_lengths = sorted({min(spd, n)} | ({n % spd} if n % spd else set()), reverse=True)
+    per = _decode_group_size(cfg, f, h // 8, w // 8)
+    group_sizes = ([f] if f <= per else
+                   sorted({per} | ({f % per} if f % per else set()), reverse=True))
+    programs = 1 + len(seg_lengths) + len(group_sizes)
+    do_exec = execute in ("auto", True)
+    if do_exec:
+        dt = torch.uint8 if uint8_inputs else torch.float32
+        emb_dim = models.face_encoder.config.id_embeddings_dim
+        clip = None if clip_shape is None else torch.zeros((1, *clip_shape, 3), dtype=dt,
+                                                           device=device)
+        state = _prepare_denoise_state(
+            models, torch.zeros((1, h, w, 3), dtype=dt, device=device),
+            torch.zeros((f, h, w, 3), dtype=dt, device=device),
+            torch.zeros((1, emb_dim), device=device), cfg, device, clip_image=clip,
+            aug_noise=torch.zeros((1, h, w, 3), device=device),
+            init_noise=torch.zeros((1, cfg.tile_size, h // 8, w // 8, 4), device=device))
+        latents = state[0]
+        for k in seg_lengths:
+            latents, _ = _denoise_segment(models, latents, *state[1:], cfg, 0, k)
+        for g in group_sizes:
+            _decode_group(models, latents, 0, cfg, g)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return {"path": "segmented", "programs": programs, "executed": bool(do_exec),
+            "face_opt": False}
 
 
 def output_uint8(frames: torch.Tensor) -> torch.Tensor:

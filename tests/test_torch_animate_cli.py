@@ -1,0 +1,119 @@
+"""The port's inference CLI (`stableanimator_tpu_torch.cli.animate`) on the
+CPU, at the micro scale and 64x64 with seeded random weights: the files it
+writes, its frames against a direct `generate` with the same seed, the
+options not ported yet, and the port's `utils` against the JAX package's
+(byte for byte).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from stableanimator_tpu.utils import image as jax_image
+from stableanimator_tpu.utils import mp4 as jax_mp4
+from stableanimator_tpu_torch.cli import animate
+from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+from stableanimator_tpu_torch.utils import image, mp4
+
+N_FRAMES = 6
+
+
+@pytest.fixture()
+def inputs(tmp_path):
+    rng = np.random.default_rng(0)
+    # the reference at another size than the frames: CLIP sees the original
+    Image.fromarray(rng.integers(0, 255, (80, 72, 3), dtype=np.uint8)).save(tmp_path / "ref.png")
+    poses = tmp_path / "poses"
+    poses.mkdir()
+    for i in range(N_FRAMES):
+        img = np.zeros((64, 64, 3), np.uint8)
+        img[10 + 3 * i:30 + 3 * i, 20:40] = 255
+        Image.fromarray(img).save(poses / f"frame_{i}.png")
+    return tmp_path
+
+
+def _argv(root, *extra):
+    return ["--checkpoint_dir", str(root / "ckpt"), "--reference_image", str(root / "ref.png"),
+            "--pose_control_folder", str(root / "poses"), "--output_dir", str(root / "out"),
+            "--height", "64", "--width", "64", "--tile_size", "4", "--frames_overlap", "1",
+            "--num_inference_steps", "2", "--decode_chunk_size", "2", "--seed", "5",
+            "--device", "cpu", "--model_scale", "micro", "--allow_random_init", *extra]
+
+
+def test_cli_writes_the_outputs_of_a_direct_generate(inputs, capsys):
+    info = animate.main(_argv(inputs))
+    out = capsys.readouterr().out
+    assert info["num_frames"] == N_FRAMES and info["warm"]["path"] == "flat"
+    assert "zero identity embedding" in out and f"generated {N_FRAMES} frames" in out
+    pngs = sorted(os.listdir(inputs / "out" / "animated_images"))
+    assert pngs == sorted(f"frame_{i}.png" for i in range(N_FRAMES))
+    with Image.open(inputs / "out" / "animation_video.gif") as gif:
+        assert gif.n_frames == N_FRAMES
+    assert (inputs / "out" / "animation_video.mp4").stat().st_size > 0
+
+    models = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu")
+    ref = Image.open(inputs / "ref.png").convert("RGB")
+    poses = image.load_images_from_folder(str(inputs / "poses"), 64, 64)
+    cfg = PipelineConfig(height=64, width=64, num_frames=N_FRAMES, tile_size=4, tile_overlap=1,
+                         num_inference_steps=2, decode_chunk_size=2, output_uint8=True)
+    want = generate(models, torch.tensor(image.pil_to_u8_array(ref.resize((64, 64)))),
+                    torch.from_numpy(image.poses_to_u8_array(poses)),
+                    torch.zeros((1, models.face_encoder.config.id_embeddings_dim)), cfg,
+                    clip_image=torch.tensor(image.pil_to_u8_array(ref)),
+                    generator=torch.Generator().manual_seed(5), device="cpu").numpy()
+    got = np.stack([np.asarray(Image.open(inputs / "out" / "animated_images" / f"frame_{i}.png"))
+                    for i in range(N_FRAMES)])
+    assert want.std() > 1.0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case,match", [("driving", "item 11"), ("face_opt", "item 9"),
+                                        ("onnx", "item 11")])
+def test_cli_options_not_ported_raise(inputs, case, match):
+    extra = []
+    if case == "driving":
+        argv = [a if a != "--pose_control_folder" else "--driving_video_folder"
+                for a in _argv(inputs)]
+    else:
+        argv = _argv(inputs)
+    if case == "face_opt":
+        extra = ["--face_optimize_steps", "2"]
+    if case == "onnx":
+        antelope = inputs / "ckpt" / "antelopev2"
+        antelope.mkdir(parents=True)
+        for name in ("scrfd_10g_bnkps.onnx", "glintr100.onnx"):
+            (antelope / name).write_bytes(b"onnx")
+    with pytest.raises(NotImplementedError, match=match):
+        animate.main(argv + extra)
+    assert not (inputs / "out").exists()
+
+
+def test_utils_write_what_the_jax_package_writes(tmp_path, inputs):
+    rng = np.random.default_rng(1)
+    frames = rng.uniform(size=(5, 32, 48, 3)).astype(np.float32)
+    u8, ju8 = image.frames_to_uint8(frames), jax_image.frames_to_uint8(frames)
+    np.testing.assert_array_equal(np.stack(u8), np.stack(ju8))
+    for name, ours, theirs in (
+            ("a.gif", lambda p: image.export_to_gif(u8, p), lambda p: jax_image.export_to_gif(u8, p)),
+            ("a.mp4", lambda p: image.export_to_mp4(u8, p), lambda p: jax_image.export_to_mp4(u8, p)),
+            ("m.mp4", lambda p: mp4.write_mp4_mjpeg(u8, p, fps=8),
+             lambda p: jax_mp4.write_mp4_mjpeg(u8, p, fps=8))):
+        (tmp_path / "port").mkdir(exist_ok=True)
+        (tmp_path / "jax").mkdir(exist_ok=True)
+        ours(str(tmp_path / "port" / name))
+        theirs(str(tmp_path / "jax" / name))
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    image.save_frames_as_png(u8, str(tmp_path / "port" / "png"))
+    jax_image.save_frames_as_png(u8, str(tmp_path / "jax" / "png"))
+    for i in range(5):
+        assert (tmp_path / "port" / "png" / f"frame_{i}.png").read_bytes() == \
+            (tmp_path / "jax" / "png" / f"frame_{i}.png").read_bytes()
+    folder = str(inputs / "poses")
+    ours = image.load_images_from_folder(folder, 48, 32)
+    theirs = jax_image.load_images_from_folder(folder, 48, 32)
+    np.testing.assert_array_equal(image.poses_to_u8_array(ours), jax_image.poses_to_u8_array(theirs))
+    np.testing.assert_array_equal(image.poses_to_array(ours), jax_image.poses_to_array(theirs))

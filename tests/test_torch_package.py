@@ -72,11 +72,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         animation.generate(models, ref, pose, face, cfg)
     frames = animation.generate(models, ref, pose, face, cfg, device="cpu")
     assert frames.shape == (4, 64, 64, 3) and frames.device.type == "cpu"
-    from stableanimator_tpu_torch.cli import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animation.warm_generate(models, cfg)
+    assert animation.warm_generate(models, cfg, device="cpu")["path"] == "flat"
+    from stableanimator_tpu_torch.cli import animate, train
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--checkpoint_dir", "none", "--output_dir", "none",
                     "--data_root_path", "none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animate.main(["--checkpoint_dir", "none", "--reference_image", "none",
+                      "--pose_control_folder", "none", "--output_dir", "none"])
 
 
 def _paths(tree, prefix=()):
