@@ -10,10 +10,16 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   device   card name and power limit (nvidia-smi); TF32 stated and set off
   build    builds the flash-attention kernels (streamed forward, resident
            forward, backward) from csrc/ with nvcc, one process per source,
-           in parallel
+           in parallel; prints the ptxas report and, from cuobjdump -sass,
+           the d = 64 forward's wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
+           instructions: fails on a spill in the forward, if the d = 64
+           forward uses other than 128 registers, or if either of the first
+           two instructions is missing
   kernels  the streamed forward kernel against its plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
-           at ragged and fp16 shapes; the resident forward kernel against
+           at ragged and fp16 shapes, with the d = 64 kernel's edges (q and
+           kv tails, strided views of a fused QKV tensor); the resident
+           forward kernel against
            the plain version (lse too) and against the streamed kernel at
            the UNet's generate and training shapes and ragged bf16/fp16
            ones; the backward kernels (through the autograd Function)
@@ -21,7 +27,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            training shapes and ragged bf16/fp16 ones; then every kernel
            timed with CUDA events at the paths' shapes beside its bound, its
            plain version and the PyTorch library call (the resident one
-           beside the streamed one too)
+           beside the streamed one too); the streamed forward's rows also
+           beside its earlier design's time and, at d = 64, the
+           exponentials' bound
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
@@ -60,6 +68,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -105,11 +115,33 @@ RESIDENT_CHECKS = (("unet_level0", (32, 4096, 5, 64), 4096, torch.bfloat16, Fals
                    ("ragged_300_513", (2, 300, 5, 64), 513, torch.float16, True),
                    ("small_256", (2, 256, 2, 64), 256, torch.bfloat16, True))
 RESIDENT_TIMED = ("unet_level0", "unet_level1")
-# further forward checks: the d=512 instantiation in fp16, ragged sequences
-EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), torch.float16),
-                ("ragged_576", (2, 576, 20, 64), torch.bfloat16),
-                ("ragged_300", (1, 300, 2, 64), torch.bfloat16),
-                ("ragged_300", (1, 300, 2, 64), torch.float16))
+# further forward checks, (label, q shape, kv length, dtype, fused): the
+# d=512 instantiation in fp16, ragged sequences, and the d=64 kernel's edges:
+# a q length off its 192-row tile, kv below and across one 128-key tile,
+# q, k, v as strided views of one [B, S, 3, H, D] tensor, fp16 at UNet level 1
+EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
+                ("ragged_576", (2, 576, 20, 64), 576, torch.bfloat16, False),
+                ("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
+                ("ragged_300", (1, 300, 2, 64), 300, torch.float16, False),
+                ("q_tail_200", (1, 200, 3, 64), 4096, torch.bfloat16, False),
+                ("kv_100", (2, 256, 3, 64), 100, torch.bfloat16, False),
+                ("kv_300", (2, 256, 3, 64), 300, torch.bfloat16, False),
+                ("fused_qkv", (2, 640, 4, 64), 640, torch.bfloat16, True),
+                ("unet_level1_fp16", (32, 1024, 10, 64), 1024, torch.float16, False))
+# the streamed forward's times per launch with its earlier design (mma.sync
+# at both head dims, before the d = 64 wgmma / TMA kernel), measured by this
+# script on an H100 80GB HBM3 at 700 W; printed beside this run's
+EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.421,
+              "train_level0": 3.449, "train_level1": 0.467}
+# the d = 64 forward kernel's symbol, and the SASS instructions that show
+# its design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG)
+FWD_D64_SYMBOL = "flash_fwd_sm90_kernel"
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+# its registers per thread at launch, 65536 over its 512 threads: the
+# consumers' setmaxnreg.inc to 160 waits for good on fewer
+FWD_D64_REGISTERS = 128
+# MUFU exponentials per clock per SM
+EXP_PER_CLOCK_PER_SM = 16
 # further backward checks: (label, q shape, kv length, dtype)
 BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16),
                     ("ragged_300", (1, 300, 2, 64), 300, torch.float16),
@@ -118,7 +150,7 @@ BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16),
 ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "train",
               "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
-CATEGORIES = (("flash_attention_fwd", r"flash_fwd_kernel"),
+CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(sm90_)?kernel"),
               ("flash_attention_resident", r"flash_resident_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
@@ -194,6 +226,35 @@ def phase_device():
         f"{PEAK_BYTES / 1e12:.2f} TB/s")
 
 
+def _registers(report: str) -> dict:
+    """By instantiation of the d = 64 forward kernel, the registers that
+    ptxas's report (-v) says it uses."""
+    regs, func = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if entry:
+            func = entry.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and func and FWD_D64_SYMBOL in func:
+            regs[func] = int(used.group(1))
+    return regs
+
+
+def _sass_counts(path) -> dict:
+    """By instantiation of the d = 64 forward kernel in the built library,
+    the count of each of SASS_OPS in its SASS (cuobjdump -sass)."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if FWD_D64_SYMBOL in name:
+            counts[name] = {op: func.count(op) for op in SASS_OPS}
+    return counts
+
+
 def phase_build():
     from stableanimator_tpu_torch.ops import build
 
@@ -206,15 +267,47 @@ def phase_build():
         log_file = path.with_suffix(".log")
         report = log_file.read_text() if log_file.exists() else ""
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line or "C75" in line:
                 log(f"[build]   {name}: {line.strip()}")
+        spills = [ln for ln in report.splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        if name == FWD_KERNEL and spills:
+            raise SystemExit(f"{name} spills registers: {spills}")
+        if name == FWD_KERNEL:
+            regs = _registers(report)
+            if not regs or any(n != FWD_D64_REGISTERS for n in regs.values()):
+                raise SystemExit(f"the d = 64 forward kernel must use {FWD_D64_REGISTERS} "
+                                 f"registers (ptxas): {regs}")
+    counts = _sass_counts(paths[FWD_KERNEL])
+    for func, ops in counts.items():
+        log(f"[build] {FWD_KERNEL} d=64 SASS {func[:100]}: "
+            + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
+        raise SystemExit(f"the d = 64 forward kernel lacks wgmma or TMA loads in its SASS: {counts}")
 
 
-def _qkv(shape, dtype, seed, sk=None):
+def _qkv(shape, dtype, seed, sk=None, fused=False):
+    """Seeded q [B, Sq, H, D] and k, v [B, sk, H, D]; `fused` makes them
+    strided views of one [B, S, 3, H, D] tensor (sk must then be Sq)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, sq, h, d = shape
+    if fused:
+        if sk not in (None, sq):
+            raise ValueError("a fused QKV tensor has one sequence length")
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda").to(dtype)
+        return [qkv[:, :, i] for i in range(3)]
     return [torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=torch.float32).to(dtype)
             for s in (sq, sk or sq, sk or sq)]
+
+
+def _exp_rate() -> tuple[float, int, float]:
+    """Exponentials per second of the card's MUFU units, 16 per clock per SM
+    at the maximum SM clock, with its SM count and that clock in MHz."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
 
 
 def _check(lbl, q, k, v) -> float:
@@ -234,7 +327,8 @@ def _check(lbl, q, k, v) -> float:
         share = max(share, (diff / bound).max().item())
     err_lse = (lse - ref_lse).abs().max().item()
     ok = share <= 1.0 and err_lse <= LSE_ATOL
-    log(f"[kernels] fwd {lbl} {tuple(q.shape)} {str(q.dtype)[6:]}: max|o-ref| {err:.3e}, "
+    log(f"[kernels] fwd {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}"
+        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}: max|o-ref| {err:.3e}, "
         f"{share:.3f} of the bound (eps|ref| + 2 eps rms(ref), rms "
         f"{ref_o.float().square().mean().sqrt().item():.3e}); max|lse-ref| {err_lse:.3e} tol "
         f"{LSE_ATOL} -> {'ok' if ok else 'FAIL'}")
@@ -349,9 +443,13 @@ def phase_kernels():
     from stableanimator_tpu_torch.ops.flash_attention import flash_attention_resident
 
     max_err = {name: 0.0 for name in KERNELS}
-    for lbl, shape, dtype in EXTRA_CHECKS:
+    for lbl, shape, sk, dtype, fused in EXTRA_CHECKS:
         max_err[FWD_KERNEL] = max(max_err[FWD_KERNEL],
-                                  _check(lbl, *_qkv(shape, dtype, seed=len(lbl))))
+                                  _check(lbl, *_qkv(shape, dtype, seed=len(lbl), sk=sk, fused=fused)))
+        torch.cuda.empty_cache()
+    exp_per_s, sms, mhz = _exp_rate()
+    log(f"[kernels] exponentials' bound: B*H*Sq*Sk / ({EXP_PER_CLOCK_PER_SM} per clock x {sms} SMs "
+        f"x {mhz:.0f} MHz max SM clock) = {exp_per_s / 1e12:.3f} T/s")
     for lbl, shape, sk, dtype, with_lse in RESIDENT_CHECKS:
         max_err[RES_KERNEL] = max(max_err[RES_KERNEL], _check_resident(
             lbl, *_qkv(shape, dtype, seed=len(lbl) + 1, sk=sk), with_lse))
@@ -371,12 +469,15 @@ def phase_kernels():
         flops = 4.0 * b * h * s * s * d
         nbytes = 4.0 * b * s * h * d * 2 + (4.0 * b * s * h if with_lse else 0.0)
         bound_ms, bound_by = _bound(flops, nbytes)
+        exp_ms = b * h * s * s / exp_per_s * 1e3 if d == 64 else None
         row = dict(shape=list(shape), with_lse=with_lse, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / ms / 1e9)
         log(f"[kernels] {FWD_KERNEL} {lbl} {tuple(shape)} bf16 lse={with_lse}: kernel {ms:.3f} "
-            f"ms ({row['tflops']:.0f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}), plain "
-            f"{plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
+            f"ms ({row['tflops']:.0f} TFLOP/s; earlier design {EARLIER_FWD_MS[lbl]:.3f} ms), bound "
+            f"{bound_ms:.3f} ms ({bound_by})"
+            + (f", exponentials' bound {exp_ms:.3f} ms" if exp_ms is not None else "")
+            + f", plain {plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
         rows[FWD_KERNEL].append((lbl, row))
         if lbl in RESIDENT_TIMED:
             res_ms = cuda_ms(lambda: flash_attention_resident(q, k, v), iters=20)

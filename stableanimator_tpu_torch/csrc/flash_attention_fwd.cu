@@ -5,31 +5,68 @@
 //     o = softmax((q * scale) k^T) v      and optionally  lse = m + log(l),
 // with the TPU kernel's rounding: q is scaled in fp32 and rounded to the
 // input type, the logits, running max m, normaliser l and accumulator stay
-// fp32, P is rounded to the input type before P.V, and the kv tail is masked
-// with -inf. Inputs are read in the model's [B, S, H, D] layout through their
-// strides (last dim contiguous), so no transposes surround the call.
+// fp32, P = exp(s - m) is rounded to the input type before P.V while l sums
+// the unrounded P, and the kv tail is masked with -inf. Inputs are read in
+// the model's [B, S, H, D] layout through their strides (last dim
+// contiguous), so no transposes surround the call. Two kernels, chosen by
+// the head dim:
 //
-// What bounds it: at the main path's shapes (S = 4096 / 1024 tokens, d = 64;
-// S = 4096, d = 512) the work is 4*B*H*Sq*Sk*d operations on a few MB of
-// inputs, far above the card's ~295 operations per byte, so the tensor-core
-// rate bounds it. The design therefore keeps q resident in shared memory for
-// a whole kv sweep (one block per (q tile, head, batch); a loop over kv
-// tiles replaces the TPU's sequential kv grid axis), feeds the tensor cores
-// with mma.sync m16n8k16 from ldmatrix'd shared-memory tiles padded against
-// bank conflicts, and prefetches the V tile with cp.async while Q.K^T runs.
-// Logits pass through shared memory between the Q.K^T and P.V phases, so one
-// code path serves d = 64 (64-row q tiles, 4 warps) and d = 512 (32-row q
-// tiles, 8 warps, 107 KB of dynamic shared memory). wgmma, TMA and warp
-// specialisation are left for later work.
+// d = 64, the UNet's attentions (flash_fwd_sm90_kernel). At the main path's
+// shapes (4096 / 1024 tokens) the work is 4*B*H*Sq*Sk*d operations on a few
+// MB of inputs, far above the card's ~295 operations per byte: the bytes are
+// no limit. Two units are, about equally: the tensor cores (256 operations
+// per logit at 989 TFLOP/s) and the MUFU unit, which takes one exponential
+// per logit at 16 per clock per SM (at UNet level 0, 2.7 G exponentials are
+// ~0.64 ms on 132 SMs at 1.98 GHz against ~0.70 ms of tensor-core time).
+// The design:
+//  - one CTA per (192-row q tile, head, batch), four warpgroups: a producer,
+//    whose one thread issues the TMA loads and whose registers setmaxnreg
+//    hands to the others, and three consumers of 64 q rows each;
+//  - TMA loads through 4-D tensor maps (D, S, H, B) built on the host over
+//    the strided tensors, 128-byte swizzled: Q once, then 128-key K and V
+//    tiles into a ring of 4 stages with full / empty mbarriers, so the
+//    producer keeps the next tiles in flight while the consumers work. TMA
+//    fills rows past the end with zeros, which give logits of 0, so the kv
+//    tail is still masked;
+//  - S = Q K^T by wgmma m64n128k16 from shared memory (each consumer first
+//    scales and rounds its Q rows in place); the online softmax on the
+//    accumulator fragment in registers, exp(x) as exp2(x * log2 e) with
+//    log2 e folded into one FFMA, quad shuffles for the row max, l kept per
+//    thread and summed across the quad at the end; P packed to 16 bits in
+//    registers is the A operand of O += P V, wgmma m64n64k16 with V read
+//    MN-major. No logits or P pass through shared memory and no block-wide
+//    barrier runs inside the kv loop;
+//  - the exponentials overlap the products twice over: a consumer issues
+//    tile j's Q K^T and tile j-1's P V before it waits for the first, so
+//    tile j's softmax runs while the tensor cores do that P V; and the
+//    consumers take turns (ping-pong on named barriers) to issue their
+//    products, so one's softmax runs under the others' products (three
+//    consumers with ping-pong beat two without at every UNet shape on the
+//    H100; PERF.md section 6);
+//  - epilogue: O / l, rounded, is staged in the swizzled layout into the
+//    warpgroup's own Q rows (no longer read) and written by one TMA store,
+//    which drops the rows past the q tail; lse goes straight from registers.
+//
+// d = 512, the VAE decoder's mid attention (flash_fwd_kernel): mma.sync
+// m16n8k16 from ldmatrix'd shared-memory tiles padded against bank
+// conflicts and loaded with cp.async, one block of 8 warps per (32-row q
+// tile, head, batch), the V tile prefetched while Q.K^T runs, logits through
+// shared memory (107 KB of dynamic shared memory): a 64 x 512 fp32 wgmma
+// accumulator per warpgroup does not fit the d = 64 scheme.
 //
 // C interface (bound with ctypes): sa_flash_attention_fwd returns the
-// cudaError_t of the launch (cudaGetLastError), 0 on success.
+// cudaError_t of the launch (cudaGetLastError), 0 on success, and
+// cudaErrorInvalidValue for a head dim it does not take or a layout whose
+// tensor map the CUDA driver refuses.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -351,9 +388,365 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d = 64: wgmma, TMA, warp specialisation
+// ---------------------------------------------------------------------------
+
+namespace d64 {
+
+constexpr int D = 64;
+constexpr int BK = 128;                       // keys per kv tile
+constexpr int C = 3;                          // consumer warpgroups, 64 q rows each
+constexpr int BQ = 64 * C;                    // q rows per CTA
+constexpr int STAGES = 4;                     // K/V ring depth
+constexpr int NTHREADS = 128 * (C + 1);       // and one producer warpgroup
+constexpr uint32_t ROW_BYTES = D * 2;         // one 16-bit row: the 128-byte swizzle span
+constexpr uint32_t Q_BYTES = BQ * ROW_BYTES;
+constexpr uint32_t WG_Q_BYTES = 64 * ROW_BYTES;
+constexpr uint32_t KV_BYTES = BK * ROW_BYTES;
+// 1024 bytes of slack to align the swizzled tiles, the tiles, the mbarriers
+constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+constexpr float LOG2E = 1.4426950408889634f;
+// registers per thread after setmaxnreg: 128 * 24 + 384 * 160 fit in the
+// 512 * 128 that __launch_bounds__(512, 1) gives the CTA at launch
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 160;
+
+struct Params {
+  float* lse;  // [B, Sq, H] fp32, or null
+  int sq, sk, h;
+  float scale;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one kv tile whose logits are in s (the m64n128
+// accumulator fragment: s[4n], s[4n+1] in row g, s[4n+2], s[4n+3] in row
+// g + 8, columns 8n + 2t, 8n + 2t + 1). Masks the columns at or past `valid`,
+// turns s into P = exp(s - m_new) in place, updates the running max m and this
+// thread's share of l, and returns in a_lo / a_hi the factors that rescale
+// the accumulator.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int valid, int t, float& m_lo,
+                                             float& m_hi, float& l_lo, float& l_hi, float& a_lo,
+                                             float& a_hi) {
+  if (valid < BK) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c >= valid) s[4 * n] = s[4 * n + 2] = -INFINITY;
+      if (c + 1 >= valid) s[4 * n + 1] = s[4 * n + 3] = -INFINITY;
+    }
+  }
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  // every tile holds a valid key, so mx is finite; exp2(-inf) = 0 at the first
+  a_lo = ex2((m_lo - mx_lo) * LOG2E);
+  a_hi = ex2((m_hi - mx_hi) * LOG2E);
+  const float ms_lo = mx_lo * LOG2E, ms_hi = mx_hi * LOG2E;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    s[4 * n] = ex2(fmaf(s[4 * n], LOG2E, -ms_lo));
+    s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], LOG2E, -ms_lo));
+    s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], LOG2E, -ms_hi));
+    s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], LOG2E, -ms_hi));
+    sum_lo += s[4 * n] + s[4 * n + 1];
+    sum_hi += s[4 * n + 2] + s[4 * n + 3];
+  }
+  l_lo = l_lo * a_lo + sum_lo;
+  l_hi = l_hi * a_hi + sum_hi;
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+}
+
+// P (fp32, the m64n128 accumulator fragment) rounded to T as the A fragments
+// of eight k16 steps: the accumulator's layout is the A operand's
+template <typename T>
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[4 * kk] = Ops<T>::pack(s[8 * kk], s[8 * kk + 1]);
+    pa[4 * kk + 1] = Ops<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[4 * kk + 2] = Ops<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[4 * kk + 3] = Ops<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q K^T for one kv tile, issued and committed, not waited for
+template <typename T>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t desc_q, const unsigned char* k_tile) {
+  const uint64_t desc_k = sm90::desc_sw128(k_tile, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // k16 steps: 32 bytes along the rows
+    sm90::wgmma_ss_m64n128k16<T>(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+  sm90::wgmma_commit();
+}
+
+// O += P V for one kv tile, issued and committed, not waited for
+template <typename T>
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[32],
+                                         const unsigned char* v_tile) {
+  // MN-major: 8-key groups 1024 bytes apart (one 64-wide group along d, so
+  // the other offset is unused)
+  const uint64_t desc_v = sm90::desc_sw128(v_tile, 1024, 1024);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)  // k16 steps: 16 rows of 128 bytes
+    sm90::wgmma_rs_m64n64k16_tn<T>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                                   desc_v + 128 * kk);
+  sm90::wgmma_commit();
+}
+
+}  // namespace d64
+
+template <typename T>
+__global__ void __launch_bounds__(d64::NTHREADS, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_o, const d64::Params p) {
+  using namespace d64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + Q_BYTES;
+  unsigned char* sV = sK + STAGES * KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int q0 = blockIdx.x * BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int n_kv = (p.sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&k_full[st], 1);
+      sm90::mbar_init(&v_full[st], 1);
+      sm90::mbar_init(&empty[st], C * 4);  // one arrival per consumer warp
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the K/V ring full
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_tensormap(&tm_k);
+      sm90::prefetch_tensormap(&tm_v);
+      sm90::mbar_arrive_expect_tx(q_full, Q_BYTES);
+      sm90::tma_load_4d(sQ, &tm_q, q_full, 0, q0, hh, bb);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) sm90::mbar_wait(&empty[st], ((j / STAGES) - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&k_full[st], KV_BYTES);
+        sm90::tma_load_4d(sK + st * KV_BYTES, &tm_k, &k_full[st], 0, j * BK, hh, bb);
+        sm90::mbar_arrive_expect_tx(&v_full[st], KV_BYTES);
+        sm90::tma_load_4d(sV + st * KV_BYTES, &tm_v, &v_full[st], 0, j * BK, hh, bb);
+      }
+    }
+  } else {
+    // consumer warpgroup cw: q rows q0 + 64 cw .. + 63
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;  // fragment row (and row + 8) within the warp's 16
+    const int t = lane % 4;  // fragment column pair
+    unsigned char* sQw = sQ + cw * WG_Q_BYTES;
+
+    // q * scale in fp32, rounded to T, in place (elementwise: the swizzle
+    // does not matter), then made visible to wgmma
+    sm90::mbar_wait(q_full, 0);
+#pragma unroll
+    for (int i = 0; i < (int)(WG_Q_BYTES / 16 / 128); ++i) {
+      uint4* chunk = reinterpret_cast<uint4*>(sQw) + tid + 128 * i;
+      uint4 raw = *chunk;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) e[x] = Ops<T>::from_f(Ops<T>::to_f(e[x]) * p.scale);
+      *chunk = raw;
+    }
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1 + cw, 128);
+
+    const uint64_t desc_q = sm90::desc_sw128(sQw, 16, 1024);
+    // ping-pong: the consumers issue their wgmmas in turn, so that one's
+    // softmax runs under the others' products. Named barrier C + 1 + cw is
+    // this warpgroup's turn, completed by its sync and the previous
+    // warpgroup's arrival; the first turn is warpgroup 0's, and the last
+    // warpgroup makes no arrival after its last turn, so every arrival is
+    // matched.
+    const int turn_bar = C + 1 + cw;
+    const int next_bar = C + 1 + (cw + 1) % C;
+    auto take_turn = [&] { sm90::named_bar_sync(turn_bar, 256); };
+    auto pass_turn = [&](bool last) {
+      if (!(last && cw == C - 1)) sm90::named_bar_arrive(next_bar, 256);
+    };
+    if (cw == C - 1) sm90::named_bar_arrive(next_bar, 256);
+    float s[64];
+    float o[32];
+    uint32_t pa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    float l_lo = 0.f, l_hi = 0.f;
+    float a_lo, a_hi;
+
+    take_turn();
+    sm90::mbar_wait(&k_full[0], 0);
+    sm90::wgmma_fence();
+    issue_qk<T>(s, desc_q, sK);
+    pass_turn(false);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+    softmax_tile(s, p.sk, t, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+    pack_p<T>(s, pa);
+    for (int j = 1; j < n_kv; ++j) {
+      const int st = j % STAGES;
+      const int prev = (j - 1) % STAGES;
+      take_turn();
+      sm90::mbar_wait(&k_full[st], (j / STAGES) & 1);
+      sm90::wgmma_fence();
+      issue_qk<T>(s, desc_q, sK + st * KV_BYTES);
+      sm90::mbar_wait(&v_full[prev], ((j - 1) / STAGES) & 1);
+      issue_pv<T>(o, pa, sV + prev * KV_BYTES);
+      pass_turn(false);
+      sm90::wgmma_wait<1>();  // tile j's logits are in; tile j-1's P V runs on
+      sm90::fence_operands(s);
+      softmax_tile(s, p.sk - j * BK, t, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= a_lo;
+        o[4 * n + 1] *= a_lo;
+        o[4 * n + 2] *= a_hi;
+        o[4 * n + 3] *= a_hi;
+      }
+      pack_p<T>(s, pa);
+    }
+    const int last = (n_kv - 1) % STAGES;
+    take_turn();
+    sm90::mbar_wait(&v_full[last], ((n_kv - 1) / STAGES) & 1);
+    sm90::wgmma_fence();
+    issue_pv<T>(o, pa, sV + last * KV_BYTES);
+    pass_turn(true);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(o);
+
+    // epilogue: l summed over the quad; O / l rounded to T into this warp's
+    // own Q rows, 128-byte swizzled as the output map expects, then one TMA
+    // store per warpgroup
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const int r_lo = warp * 16 + g;
+    const int r_hi = r_lo + 8;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(sQw + r_lo * ROW_BYTES + ((n ^ (r_lo & 7)) << 4) + 4 * t) =
+          Ops<T>::pack(o[4 * n] / l_lo, o[4 * n + 1] / l_lo);
+      *reinterpret_cast<uint32_t*>(sQw + r_hi * ROW_BYTES + ((n ^ (r_hi & 7)) << 4) + 4 * t) =
+          Ops<T>::pack(o[4 * n + 2] / l_hi, o[4 * n + 3] / l_hi);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1 + cw, 128);
+    const int row0 = q0 + cw * 64;
+    if (tid == 0 && row0 < p.sq) {
+      sm90::tma_store_4d(&tm_o, sQw, 0, row0, hh, bb);
+      sm90::tma_store_wait();
+    }
+    if (p.lse != nullptr && t == 0) {
+      if (row0 + r_lo < p.sq)
+        p.lse[((long long)bb * p.sq + row0 + r_lo) * p.h + hh] = m_lo + logf(l_lo);
+      if (row0 + r_hi < p.sq)
+        p.lse[((long long)bb * p.sq + row0 + r_hi) * p.h + hh] = m_hi + logf(l_hi);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled, found through the runtime, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D tensor map (D, S, H, B) over a [B, S, H, D] tensor with d = 64 and
+// element strides (sb, ss, sh), boxes of `rows` x 64, 128-byte swizzled;
+// rows past the end read as zeros and are not written.
+bool make_map(CUtensorMap* map, const void* base, bool is_half, int s, int h, int b, long long sb,
+              long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d64::D, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)d64::D, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, is_half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+cudaError_t launch_d64(const Params& a, int b, cudaStream_t stream) {
+  constexpr bool is_half = std::is_same<T, __half>::value;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!make_map(&tm_q, a.q, is_half, a.sq, a.h, b, a.q_sb, a.q_ss, a.q_sh, d64::BQ) ||
+      !make_map(&tm_k, a.k, is_half, a.sk, a.h, b, a.k_sb, a.k_ss, a.k_sh, d64::BK) ||
+      !make_map(&tm_v, a.v, is_half, a.sk, a.h, b, a.v_sb, a.v_ss, a.v_sh, d64::BK) ||
+      !make_map(&tm_o, a.o, is_half, a.sq, a.h, b, a.o_sb, a.o_ss, a.o_sh, 64))
+    return cudaErrorInvalidValue;
+  const d64::Params p{a.lse, a.sq, a.sk, a.h, a.scale};
+  auto kernel = flash_fwd_sm90_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d64::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + d64::BQ - 1) / d64::BQ, a.h, b);
+  kernel<<<grid, d64::NTHREADS, d64::SMEM, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const Params& p, int b, int d, cudaStream_t stream) {
-  if (d == 64) return launch<T, 64, 64, 64, 4>(p, b, stream);
+  if (d == 64) return launch_d64<T>(p, b, stream);
   if (d == 512) return launch<T, 512, 32, 32, 8>(p, b, stream);
   return cudaErrorInvalidValue;
 }

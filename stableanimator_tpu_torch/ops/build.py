@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for Hopper (sm_90a) into `csrc/_build/lib<name>_<hash>.so`, where
-the hash covers the source and the flags: a changed source builds anew, an
-unchanged one is reused. The library is loaded with ctypes by the module
-that wraps the kernel. Nothing is built at import time.
+the hash covers the source, every header under `csrc/` (`*.cuh`, `*.h`:
+any source may include any of them) and the flags: a changed source or
+header builds anew, an unchanged tree is reused. The library is loaded with
+ctypes by the module that wraps the kernel. Nothing is built at import
+time.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "_build"
+HEADER_SUFFIXES = (".cuh", ".h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,16 +35,30 @@ def _nvcc() -> str:
     return path
 
 
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` builds to: `csrc/_build/lib<name>_<hash>.so`,
+    the hash over the source, each header under `csrc/` (its path and bytes)
+    and the flags."""
+    build_dir = CSRC / "_build"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.rglob("*")):
+        if header.suffix in HEADER_SUFFIXES and build_dir not in header.parents:
+            digest.update(b"\0" + header.relative_to(CSRC).as_posix().encode() + b"\0")
+            digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
 def build_kernel(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless the library for this exact source is
-    already built; returns its path. The compiler's report (ptxas registers,
-    shared memory, spills) is kept beside it as `.log`."""
+    """Compile `csrc/<name>.cu` unless the library for this exact source,
+    headers and flags is already built; returns its path. The compiler's
+    report (ptxas registers, shared memory, spills) is kept beside it as
+    `.log`."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -7,7 +7,9 @@ computes softmax((q * scale) k^T) v over [B, S, H, D] tensors with the TPU
 kernel's rounding: q is scaled in fp32 and rounded to the input dtype,
 softmax statistics and the accumulator are fp32, and P is rounded to the
 input dtype before P.V. `with_lse` also returns the fp32 log-sum-exp
-[B, Sq, H].
+[B, Sq, H]. Head dim 64 (the UNet) runs a Hopper design (TMA loads through
+tensor maps over the strided inputs, wgmma, a producer warpgroup and three
+consumers); head dim 512 (the VAE decoder's mid block) an mma.sync one.
 
 Backward: `csrc/flash_attention_bwd.cu` replaces `_bwd_dkv_kernel` and
 `_bwd_dq_kernel` (driven there by `_flash_bwd`): from q, k, v, the output

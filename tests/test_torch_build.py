@@ -1,0 +1,66 @@
+"""The kernel build's cache key (`ops/build.py::library_path`): the library
+name covers a kernel's source, every header under `csrc/` and the nvcc flags,
+so an edited header builds anew and an unchanged tree reuses what was built.
+Runs on a copy of `csrc/` and calls no nvcc."""
+
+import shutil
+
+import pytest
+
+from stableanimator_tpu_torch.ops import build
+
+KERNELS = ("flash_attention_fwd", "flash_attention_resident", "flash_attention_bwd")
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy, ignore=shutil.ignore_patterns("_build"))
+    monkeypatch.setattr(build, "CSRC", copy)
+    return copy
+
+
+def test_library_name_is_stable_and_follows_the_flags(csrc, monkeypatch):
+    first = {name: build.library_path(name) for name in KERNELS}
+    assert all(path.parent == csrc / "_build" for path in first.values())
+    assert all(path.name.startswith(f"lib{name}_") for name, path in first.items())
+    assert {name: build.library_path(name) for name in KERNELS} == first
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert all(build.library_path(name) != first[name] for name in KERNELS)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_library_name_changes_when_a_header_changes(csrc, name):
+    before = build.library_path(name)
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// one more line\n")
+    assert build.library_path(name) != before
+
+
+def test_a_new_header_or_source_edit_changes_the_names_it_should(csrc):
+    before = {name: build.library_path(name) for name in KERNELS}
+    (csrc / "notes.txt").write_text("not a header")
+    assert {name: build.library_path(name) for name in KERNELS} == before
+    (csrc / "extra.h").write_text("#pragma once\n")
+    added = {name: build.library_path(name) for name in KERNELS}
+    assert all(added[name] != before[name] for name in KERNELS)
+    src = csrc / "flash_attention_fwd.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    edited = {name: build.library_path(name) for name in KERNELS}
+    assert edited["flash_attention_fwd"] != added["flash_attention_fwd"]
+    assert all(edited[name] == added[name] for name in KERNELS[1:])
+
+
+def test_build_kernel_reuses_a_built_library_without_nvcc(csrc, monkeypatch):
+    def no_nvcc():
+        raise AssertionError("nvcc was called for a library that exists")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    path = build.library_path("flash_attention_fwd")
+    path.parent.mkdir(parents=True)
+    path.write_bytes(b"")
+    assert build.build_kernel("flash_attention_fwd") == path
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    with pytest.raises(AssertionError, match="nvcc was called"):
+        build.build_kernel("flash_attention_fwd")

@@ -70,10 +70,15 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 
 
-def _online_softmax(q, k, v, bk, skip_tile=None, v_weight_tile=None, acc_bf16=False):
+LOG2E = 1.4426950408889634
+
+
+def _online_softmax(q, k, v, bk, exp2=False, skip_tile=None, v_weight_tile=None, acc_bf16=False):
     """The CUDA kernel's algorithm in plain PyTorch: kv tiles of `bk` keys,
     running row max, P rounded to the input dtype at that max, fp32
-    accumulator rescaled per tile. The keyword arguments inject faults."""
+    accumulator rescaled per tile. `exp2` takes exp(x) as exp2(x log2 e) with
+    log2 e folded into the product, as the d = 64 kernel does. The other
+    keyword arguments inject faults."""
     dt = q.dtype
     qs = (q.float() / math.sqrt(q.shape[-1])).to(dt).float()
     b, sq, h, d = q.shape
@@ -85,8 +90,12 @@ def _online_softmax(q, k, v, bk, skip_tile=None, v_weight_tile=None, acc_bf16=Fa
             continue
         s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, t0:t0 + bk].float())
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
+        if exp2:
+            p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
+            alpha = torch.exp2((m - m_new) * LOG2E)
+        else:
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
         vt = v[:, t0:t0 + bk].float() * (1.05 if i == v_weight_tile else 1.0)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), vt)
@@ -96,11 +105,16 @@ def _online_softmax(q, k, v, bk, skip_tile=None, v_weight_tile=None, acc_bf16=Fa
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(dt)
 
 
-# (q/kv len, heads, head dim, dtype, kv tile): the kernel's two instantiations
-@pytest.mark.parametrize("s,h,d,dtype,bk", [(1024, 5, 64, torch.bfloat16, 64),
-                                            (1024, 1, 512, torch.bfloat16, 32),
-                                            (1024, 2, 64, torch.float16, 64)])
-def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, d, dtype, bk):
+# (q/kv len, heads, head dim, dtype, kv tile, exp2): the d = 512 kernel (32-key
+# tiles, exp), the earlier d = 64 tiling (64-key tiles, exp) and the d = 64
+# kernel (128-key tiles, exp2), bf16 and fp16
+@pytest.mark.parametrize("s,h,d,dtype,bk,exp2", [(1024, 5, 64, torch.bfloat16, 64, False),
+                                                 (1024, 1, 512, torch.bfloat16, 32, False),
+                                                 (1024, 2, 64, torch.float16, 64, False),
+                                                 (1024, 5, 64, torch.bfloat16, 128, True),
+                                                 (1024, 2, 64, torch.float16, 128, True),
+                                                 (1000, 3, 64, torch.bfloat16, 128, True)])
+def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, d, dtype, bk, exp2):
     gen = torch.Generator().manual_seed(s + h + d)
     q, k, v = (torch.randn((1, s, h, d), generator=gen).to(dtype) for _ in range(3))
     ref = fa.flash_attention_reference(q, k, v)
@@ -109,7 +123,7 @@ def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, 
     def share(out):          # the largest share of the bound an output uses
         return ((out.float() - ref.float()).abs() / bound).max().item()
 
-    assert share(_online_softmax(q, k, v, bk)) < 1.0
-    assert share(_online_softmax(q, k, v, bk, skip_tile=3)) > 1.0
-    assert share(_online_softmax(q, k, v, bk, v_weight_tile=3)) > 1.0
-    assert share(_online_softmax(q, k, v, bk, acc_bf16=True)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2)) < 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, skip_tile=3)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, v_weight_tile=3)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, acc_bf16=True)) > 1.0
