@@ -11,10 +11,11 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   build    builds the flash-attention kernels (streamed forward, resident
            forward, backward) from csrc/ with nvcc, one process per source,
            in parallel; prints the ptxas report and, from cuobjdump -sass,
-           the d = 64 forward's wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
-           instructions: fails on a spill in the forward, if the d = 64
-           forward uses other than 128 registers, or if either of the first
-           two instructions is missing
+           the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
+           d = 64 forward and of both backward kernels: fails on a spill in
+           the forward or the backward, if one of those three kernels uses
+           other than its launch-bound register count (setmaxnreg needs it),
+           or if HGMMA or UTMALDG is missing from one of them
   kernels  the streamed forward kernel against its plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
            at ragged and fp16 shapes, with the d = 64 kernel's edges (q and
@@ -29,7 +30,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            plain version and the PyTorch library call (the resident one
            beside the streamed one too); the streamed forward's rows also
            beside its earlier design's time and, at d = 64, the
-           exponentials' bound
+           exponentials' bound; the backward's beside their earlier design's
+           times and the bound of the products they issue (P and dS split
+           in two)
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
@@ -133,27 +136,48 @@ EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
 # script on an H100 80GB HBM3 at 700 W; printed beside this run's
 EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.421,
               "train_level0": 3.449, "train_level1": 0.467}
-# the d = 64 forward kernel's symbol, and the SASS instructions that show
-# its design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG)
-FWD_D64_SYMBOL = "flash_fwd_sm90_kernel"
+# the Hopper kernels' symbols by library, and the SASS instructions that
+# show their design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG;
+# the backward stores from registers)
+SM90_SYMBOLS = {FWD_KERNEL: ("flash_fwd_sm90_kernel",),
+                BWD_SOURCE: ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
-# its registers per thread at launch, 65536 over its 512 threads: the
-# consumers' setmaxnreg.inc to 160 waits for good on fewer
-FWD_D64_REGISTERS = 128
+# their registers per thread at launch, 65536 over their threads rounded
+# down to 8 (512 threads for the forward, 384 for the backward): the
+# consumers' setmaxnreg.inc (to 160, and to 240) waits for good on fewer
+SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_bwd_dkv_sm90_kernel": 168,
+                  "flash_bwd_dq_sm90_kernel": 168}
 # MUFU exponentials per clock per SM
 EXP_PER_CLOCK_PER_SM = 16
-# further backward checks: (label, q shape, kv length, dtype)
-BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16),
-                    ("ragged_300", (1, 300, 2, 64), 300, torch.float16),
-                    ("ragged_640_576", (2, 640, 2, 64), 576, torch.bfloat16),
-                    ("ragged_640_576", (2, 640, 2, 64), 576, torch.float16))
+# further backward checks: (label, q shape, kv length, dtype, fused): ragged
+# sequences, and the kernels' edges: a q length off the 64-row q tile (dK/dV)
+# and the 128-row one (dQ) against 4096 keys, kv below and across the 128-row
+# kv block (dK/dV) and off the 64-row kv tile (dQ), q, k, v as strided views
+# of one [B, S, 3, H, D] tensor, fp16 at training level 1
+BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
+                    ("ragged_300", (1, 300, 2, 64), 300, torch.float16, False),
+                    ("ragged_640_576", (2, 640, 2, 64), 576, torch.bfloat16, False),
+                    ("ragged_640_576", (2, 640, 2, 64), 576, torch.float16, False),
+                    ("q_tail_200", (1, 200, 3, 64), 4096, torch.bfloat16, False),
+                    ("kv_100", (2, 256, 3, 64), 100, torch.bfloat16, False),
+                    ("kv_300", (2, 256, 3, 64), 300, torch.bfloat16, False),
+                    ("fused_qkv", (2, 640, 4, 64), 640, torch.bfloat16, True),
+                    ("train_level1_fp16", (16, 1024, 10, 64), 1024, torch.float16, False))
+# the backward kernels' times per launch with their earlier design
+# (mma.sync, before the wgmma / TMA kernels), measured by this script on an
+# H100 80GB HBM3 at 700 W; printed beside this run's
+EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
+                  DQ_KERNEL: {"train_level0": 3.145, "train_level1": 0.434}}
+# products of 2 B H Sq Sk d operations each kernel issues, P and dS fed to
+# the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ
+ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
 ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "train",
               "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(sm90_)?kernel"),
               ("flash_attention_resident", r"flash_resident_kernel"),
-              ("flash_attention_bwd_dkv", r"flash_bwd_dkv_kernel"),
-              ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
+              ("flash_attention_bwd_dkv", r"flash_bwd_dkv_sm90_kernel"),
+              ("flash_attention_bwd_dq", r"flash_bwd_dq_sm90_kernel"),
               ("conv", r"conv|cudnn|fprop|dgrad|wgrad|implicit_convolve|winograd"),
               ("gemm", r"gemm|gemv|nvjet|cutlass|xmma|sm90_|cublas|matmul"),
               ("norm/softmax/reduce", r"reduce|softmax|norm|welford"),
@@ -226,23 +250,23 @@ def phase_device():
         f"{PEAK_BYTES / 1e12:.2f} TB/s")
 
 
-def _registers(report: str) -> dict:
-    """By instantiation of the d = 64 forward kernel, the registers that
-    ptxas's report (-v) says it uses."""
+def _registers(report: str, symbol: str) -> dict:
+    """By instantiation of the kernel `symbol`, the registers that ptxas's
+    report (-v) says it uses."""
     regs, func = {}, None
     for line in report.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if entry:
             func = entry.group(1)
         used = re.search(r"Used (\d+) registers", line)
-        if used and func and FWD_D64_SYMBOL in func:
+        if used and func and symbol in func:
             regs[func] = int(used.group(1))
     return regs
 
 
-def _sass_counts(path) -> dict:
-    """By instantiation of the d = 64 forward kernel in the built library,
-    the count of each of SASS_OPS in its SASS (cuobjdump -sass)."""
+def _sass_counts(path, symbol: str) -> dict:
+    """By instantiation of the kernel `symbol` in the built library, the
+    count of each of SASS_OPS in its SASS (cuobjdump -sass)."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
@@ -250,7 +274,7 @@ def _sass_counts(path) -> dict:
     counts = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
-        if FWD_D64_SYMBOL in name:
+        if symbol in name:
             counts[name] = {op: func.count(op) for op in SASS_OPS}
     return counts
 
@@ -271,19 +295,19 @@ def phase_build():
                 log(f"[build]   {name}: {line.strip()}")
         spills = [ln for ln in report.splitlines() if "spill" in ln
                   and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        if name == FWD_KERNEL and spills:
+        if name in SM90_SYMBOLS and spills:
             raise SystemExit(f"{name} spills registers: {spills}")
-        if name == FWD_KERNEL:
-            regs = _registers(report)
-            if not regs or any(n != FWD_D64_REGISTERS for n in regs.values()):
-                raise SystemExit(f"the d = 64 forward kernel must use {FWD_D64_REGISTERS} "
-                                 f"registers (ptxas): {regs}")
-    counts = _sass_counts(paths[FWD_KERNEL])
-    for func, ops in counts.items():
-        log(f"[build] {FWD_KERNEL} d=64 SASS {func[:100]}: "
-            + ", ".join(f"{op} {n}" for op, n in ops.items()))
-    if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
-        raise SystemExit(f"the d = 64 forward kernel lacks wgmma or TMA loads in its SASS: {counts}")
+        for symbol in SM90_SYMBOLS.get(name, ()):
+            regs = _registers(report, symbol)
+            if not regs or any(n != SM90_REGISTERS[symbol] for n in regs.values()):
+                raise SystemExit(f"{symbol} must use {SM90_REGISTERS[symbol]} registers "
+                                 f"(ptxas): {regs}")
+            counts = _sass_counts(path, symbol)
+            for func, ops in counts.items():
+                log(f"[build] {name} SASS {func[:100]}: "
+                    + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
+                raise SystemExit(f"{symbol} lacks wgmma or TMA loads in its SASS: {counts}")
 
 
 def _qkv(shape, dtype, seed, sk=None, fused=False):
@@ -374,7 +398,7 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
     returns the largest absolute error of each kernel's outputs."""
     from stableanimator_tpu_torch.ops import flash_attention as fa
 
-    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]   # strides kept
     out = fa.flash_attention(*qkv)
     if out.grad_fn is None:
         raise SystemExit("flash_attention's output on the card carries no grad_fn")
@@ -388,7 +412,8 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
         errs.append(diff.max().item())
         shares.append((diff / fa.grad_tolerance(w)).max().item())
     ok = max(shares) <= 1.0
-    log(f"[kernels] bwd {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}: "
+    log(f"[kernels] bwd {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}"
+        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}: "
         "max|g-ref| dq/dk/dv " + " ".join(f"{e:.3e}" for e in errs) + ", share of "
         "grad_tolerance (eps|ref| + eps/4 rms(ref)) " + " ".join(f"{s:.3f}" for s in shares)
         + f" -> {'ok' if ok else 'FAIL'}")
@@ -399,7 +424,9 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
 
 def _time_bwd(lbl, shape) -> dict:
     """CUDA-event times of each backward kernel at a training shape, beside
-    its bound, the plain backward and SDPA's backward."""
+    its bound, the plain backward and SDPA's backward; the log line also
+    gives its earlier design's time and the bound of the products it
+    issues."""
     import math
 
     from stableanimator_tpu_torch.ops import flash_attention as fa
@@ -424,11 +451,15 @@ def _time_bwd(lbl, shape) -> dict:
     for name, (flops, nbytes) in work.items():
         ms = cuda_ms(launch[name], iters=10)
         bound_ms, bound_by = _bound(flops, nbytes)
+        issued_ms = ISSUED_PRODUCTS[name] * 2.0 * b * h * s * s * d / PEAK_FLOPS * 1e3
         rows[name] = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                           library_ms=sdpa_fb - sdpa_fwd, bound_ms=bound_ms, bound_by=bound_by,
                           tflops=flops / ms / 1e9)
         log(f"[kernels] {name} {lbl} {tuple(shape)} bf16: kernel {ms:.3f} ms "
-            f"({rows[name]['tflops']:.0f} TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}); plain "
+            f"({rows[name]['tflops']:.0f} TFLOP/s; earlier design {EARLIER_BWD_MS[name][lbl]:.3f} "
+            f"ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), issued-product bound {issued_ms:.4f} ms "
+            f"({ISSUED_PRODUCTS[name]} products, {issued_ms / ms:.1%} of it); plain "
             f"backward {plain_ms:.2f} ms, sdpa backward {sdpa_fb - sdpa_fwd:.3f} ms "
             f"(fwd+bwd {sdpa_fb:.3f} - fwd {sdpa_fwd:.3f})")
     return rows
@@ -489,11 +520,12 @@ def phase_kernels():
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    for lbl, shape, sk, dtype in BWD_EXTRA_CHECKS:
-        errs = _check_bwd(lbl, *_qkv(shape, dtype, seed=len(lbl), sk=sk),
+    for lbl, shape, sk, dtype, fused in BWD_EXTRA_CHECKS:
+        errs = _check_bwd(lbl, *_qkv(shape, dtype, seed=len(lbl), sk=sk, fused=fused),
                           _qkv(shape, dtype, seed=99)[0])
         for name, e in errs.items():
             max_err[name] = max(max_err[name], e)
+        torch.cuda.empty_cache()
     for lbl, shape in TRAIN_SHAPES:
         q, k, v = _qkv(shape, torch.bfloat16, seed=5)
         errs = _check_bwd(lbl, q, k, v, _qkv(shape, torch.bfloat16, seed=6)[0])

@@ -3,69 +3,119 @@
 // Replaces the TPU kernels stableanimator_tpu/ops/flash_attention.py::
 // _bwd_dkv_kernel and ::_bwd_dq_kernel (driven there by _flash_bwd). From
 // q, k, v, dO (the model's [B, S, H, D] layout, read through their strides)
-// and the fp32 vectors lse and delta = sum(dO * o) ([B, Sq, H], contiguous)
-// the two kernels compute, in fp32,
+// and the fp32 vectors lse and delta = sum(dO * o) the two kernels compute,
+// in fp32,
 //     S = scale q k^T, P = exp(S - lse), dP = dO v^T, dS = P (dP - delta),
 //     dV = P^T dO, dK = scale dS^T q, dQ = scale dS k,
-// and write dQ, dK, dV in the input type.
+// and write dQ, dK, dV in the input type. lse and delta come as
+// [B, H, Sq_pad] fp32, contiguous, with Sq_pad = Sq rounded up to 64 and
+// the padding zero (the wrapper lays them out so: TMA needs 16-byte strides,
+// and [B, Sq, H] rows are 4 H bytes apart).
 //
-//   flash_bwd_dkv: one block per (kv tile, head, batch). Its K and V tiles
-//     and fp32 dK, dV accumulators stay on chip while it loops over every
-//     q tile; rows of q past the sequence's end get P = 0.
-//   flash_bwd_dq: one block per (q tile, head, batch), looping over every kv
-//     tile (the kv tail masked to P = 0); it recomputes S and dP.
+//   flash_bwd_dkv_sm90_kernel: one CTA per (128 kv rows, head, batch). Its K
+//     and V stay in shared memory and its fp32 dK, dV in registers while it
+//     streams every 64-row q tile; q rows past the end get P = 0.
+//   flash_bwd_dq_sm90_kernel: one CTA per (128 q rows, head, batch),
+//     streaming every 64-row kv tile (the kv tail masked to P = 0); it
+//     recomputes S and dP.
 // Two kernels rather than one with atomics: each output element is summed by
-// one block in a fixed order, so the result is the same from run to run. A
-// loop inside each block takes the place of the TPU's sequential fori_loop
-// over the other axis.
+// one CTA in a fixed order, so the result is the same from run to run. A loop
+// inside each CTA takes the place of the TPU's sequential fori_loop over the
+// other axis.
 //
-// What bounds it: at the training shapes (S = 4096 / 1024, d = 64) the work,
-// 8 B H Sq Sk d operations for dK/dV and 6 B H Sq Sk d for dQ, is far above
-// the card's ~295 operations per byte, so the tensor-core rate bounds both.
-// The design keeps every product on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulation) and keeps P and dS in registers: each warp computes
-// S^T and dP^T (dkv) or S and dP (dq) for its own 16 rows, and the fp32 C
-// fragment of those products is, repacked, the A fragment of the next
-// product, so nothing passes through shared memory between them. P and dS
-// are fp32; they enter the 16-bit tensor cores as two parts, hi = round(x)
-// and lo = round(x - hi), so the products keep about 16 bits of them (this
-// doubles the dV, dK and dQ products' mma count). Q.K^T and dO.V^T have
-// 16-bit operands on both sides and are exact. Tiles are 64 x 64 with 4
-// warps, loaded once per step with cp.async into padded shared memory (no
-// double buffering): wgmma, TMA and a pipelined design are later work.
+// What bounds it. P and dS are fp32 and enter the 16-bit tensor cores as two
+// parts, hi = round(x) and lo = round(x - hi), so the products keep about 16
+// bits of them (grad_tolerance in ops/flash_attention.py rests on it); that
+// doubles the dV, dK and dQ products. dK/dV issues 6 products of
+// 2 B H Sq Sk d operations (S^T, dP^T, dV hi and lo, dK hi and lo), dQ 4 (S,
+// dP, dQ hi and lo): at the training shapes (4096 / 1024 tokens, d = 64) far
+// above the card's ~295 operations per byte, so the tensor cores bound both,
+// at 1.5x (dK/dV) and 1.33x (dQ) the function's own work. Beside them the
+// FP32 pipe does about 10 operations per logit (subtracting lse, exp2,
+// dP - delta, the product with P, and the hi / lo split of P and dS); that
+// work must run under the products, not between them.
+//
+// The design, from the patterns of the d = 64 forward (flash_attention_fwd.cu):
+//  - warp specialisation: a producer warpgroup, whose one thread issues every
+//    load and whose registers setmaxnreg hands to the others (24 left), and
+//    two consumer warpgroups of 64 rows each (240 registers: the dK/dV
+//    consumer holds S^T and dP^T, 32 + 32, the dK and dV accumulators,
+//    32 + 32, and the hi / lo A fragments of P^T and dS^T, 64);
+//  - TMA loads through 4-D tensor maps (D, S, H, B) over the strided inputs,
+//    128-byte swizzled (the canonical wgmma layout): the CTA's own rows
+//    (K and V, or Q and dO) once, then the streamed tiles (Q, dO and 1-D bulk
+//    copies of their lse and delta; or K and V) through a ring of 4 stages
+//    with full / empty mbarriers. TMA fills rows past the end with zeros;
+//  - S^T = K Q^T and dP^T = V dO^T (dQ: S = Q K^T, dP = dO V^T) are wgmma
+//    m64n64k16 with both operands K-major in shared memory;
+//  - P^T and dS^T (dQ: dS) stay in registers: the fp32 accumulator fragment,
+//    packed as hi and lo, is the A operand of dV += P^T dO and dK += dS^T Q
+//    (dQ += dS K), wgmma m64n64k16 from registers with dO, Q (K) read
+//    MN-major from the same swizzled tiles. No logits, P or dS pass through
+//    shared memory, and no CTA-wide barrier runs inside the loop;
+//  - overlap: a consumer issues tile i's S^T, dP^T and then tile i-1's dV,
+//    dK products before it waits for the first two, so tile i's FP32 work
+//    runs while the tensor cores do tile i-1's four split products; the
+//    other consumer's products fill the tensor cores while this one waits.
+//    Measured no faster on the H100 and not kept: the consumers taking turns
+//    to issue (ping-pong), three dQ consumers (192 q rows at 160 registers),
+//    and the fixed operands (K, V; or Q, dO) held as register A fragments
+//    (dK/dV then spills, dQ runs slower); so did a hi / lo split by bit masks
+//    in place of the conversions, so the split's cost is not what bounds it;
+//  - epilogue: dK (x scale), dV and dQ (x scale) rounded to the input type and
+//    written from registers through the output strides, tail rows dropped.
 //
 // C interface (bound with ctypes): sa_flash_attention_bwd_dkv and
 // sa_flash_attention_bwd_dq return the cudaError_t of the launch
-// (cudaGetLastError), 0 on success.
+// (cudaGetLastError), 0 on success, and cudaErrorInvalidValue for a shape
+// they do not take or a layout whose tensor map the CUDA driver refuses.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int D = 64;          // head dim
-constexpr int LDT = D + 8;     // padded shared-memory row: ldmatrix without bank conflicts
-constexpr int NW = 4;          // warps per block
-constexpr int NTHREADS = NW * 32;
-constexpr int BM = 16 * NW;    // rows a block owns: 16 per warp (kv in dkv, q in dq)
-constexpr int BN = 64;         // rows of the tiles it loops over
+constexpr int D = 64;                            // head dim
+constexpr int C = 2;                             // consumer warpgroups, 64 rows each
+constexpr int ROWS = 64 * C;                     // rows a CTA owns: kv (dK/dV), q (dQ)
+constexpr int BN = 64;                           // rows of a streamed tile: q (dK/dV), kv (dQ)
+constexpr int STAGES = 4;                        // ring depth
+constexpr int NTHREADS = 128 * (C + 1);          // and one producer warpgroup
+constexpr uint32_t ROW_BYTES = D * 2;            // one 16-bit row: the 128-byte swizzle span
+constexpr uint32_t TILE_BYTES = 64 * ROW_BYTES;  // 64 rows: a streamed tile, a consumer's share
+constexpr uint32_t OWN_BYTES = ROWS * ROW_BYTES;
+constexpr uint32_t VEC_BYTES = BN * 4;           // one tile's lse or delta
+// 1024 bytes of slack to align the swizzled tiles, the tiles, (lse, delta),
+// the mbarriers
+constexpr size_t DKV_SMEM =
+    1024 + 2 * OWN_BYTES + 2 * STAGES * TILE_BYTES + 2 * STAGES * VEC_BYTES + 8 * (1 + 2 * STAGES);
+constexpr size_t DQ_SMEM = 1024 + 2 * OWN_BYTES + 2 * STAGES * TILE_BYTES + 8 * (1 + 2 * STAGES);
+constexpr float LOG2E = 1.4426950408889634f;
+// registers per thread: __launch_bounds__(384, 1) gives 65536 / 384 rounded
+// down to 8 at launch; setmaxnreg moves them from the producer to the
+// consumers (ptxas must report this count: at fewer, the consumers'
+// setmaxnreg.inc would wait forever)
+constexpr int LAUNCH_REGS = 65536 / NTHREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 128 * C * CONSUMER_REGS <= NTHREADS * LAUNCH_REGS,
+              "setmaxnreg asks for more registers than the CTA holds");
+static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory");
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;    // [B, Sq, H]
-  const float* delta;  // [B, Sq, H]
+  const float* lse;    // [B, H, Sq_pad]
+  const float* delta;  // [B, H, Sq_pad]
   void* dq;
   void* dk;
   void* dv;
   int sq, sk, h;
-  // strides (batch, seq, head) of q, k, v, dO, dQ, dK, dV
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
+  // strides (batch, seq, head) of dQ, dK, dV
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
   float scale;
 };
@@ -75,363 +125,401 @@ struct Ops;
 
 template <>
 struct Ops<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
+    lo = __uint_as_float(u << 16);
+    hi = __uint_as_float(u & 0xffff0000u);
   }
 };
 
 template <>
 struct Ops<__half> {
-  static __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-  static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
+    const float2 f = __half22float2(*reinterpret_cast<__half2*>(&u));
+    lo = f.x;
+    hi = f.y;
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// 16-byte async copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Loads rows r0 .. r0+ROWS-1 of a [S, D] slice (row stride `row_stride`)
-// into a padded [ROWS, LDT] shared tile, zero past `rows_valid`.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
-                                                int r0, int rows_valid, int tid) {
-  constexpr int CPR = D / 8;
-  for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const bool valid = r0 + r < rows_valid;
-    const T* s = src + (valid ? (long long)(r0 + r) * row_stride : 0) + c;
-    cp_async16(dst + r * LDT + c, s, valid);
+// x (fp32, an m64n64 accumulator fragment) as the A fragments of four k16
+// steps, hi = round(x) and lo = round(x - hi): the accumulator's layout is
+// the A operand's, pairs of neighbouring columns in one register
+template <typename T>
+__device__ __forceinline__ void split(const float (&x)[32], uint32_t (&hi)[16],
+                                      uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float h0, h1;
+    hi[i] = Ops<T>::pack(x[2 * i], x[2 * i + 1]);
+    Ops<T>::unpack(hi[i], h0, h1);
+    lo[i] = Ops<T>::pack(x[2 * i] - h0, x[2 * i + 1] - h1);
   }
 }
 
-// A fragments (m16n8k16, row-major 16 x 64) of rows row0 .. row0+15 of a
-// shared tile, one per 16-wide k step.
+// acc = A B^T over d = 64, A and B 64-row tiles K-major in shared memory;
+// issued, not committed
 template <typename T>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const T* tile, int row0,
-                                             int lane) {
-  const int mi = lane / 8;
-  const int rr = lane % 8;
+__device__ __forceinline__ void issue_ss(float (&acc)[32], const unsigned char* a,
+                                         const unsigned char* b) {
+  const uint64_t desc_a = sm90::desc_sw128(a, 16, 1024);
+  const uint64_t desc_b = sm90::desc_sw128(b, 16, 1024);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(a[kk], tile + (row0 + rr + (mi & 1) * 8) * LDT + kk * 16 + (mi >> 1) * 8);
+  for (int kk = 0; kk < D / 16; ++kk)  // k16 steps: 32 bytes along the rows
+    sm90::wgmma_ss_m64n64k16<T>(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk > 0);
 }
 
-// C[16 x BN] += A[16 x 64] . tile^T, with tile a [BN, 64] shared tile whose
-// rows are the output's columns ("col" B operand, ldmatrix without .trans).
+// acc += X B, X = hi + lo the A fragments of a 64 x 64 fp32 fragment and B a
+// 64-row tile read MN-major; issued, not committed
 template <typename T>
-__device__ __forceinline__ void mma_abt(float (&c)[BN / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const T* tile, int lane) {
-  const int l16 = lane % 16;
+__device__ __forceinline__ void issue_rs(float (&acc)[32], const uint32_t (&hi)[16],
+                                         const uint32_t (&lo)[16], const unsigned char* b) {
+  // 8-row groups 1024 bytes apart (one 64-wide group along d, so the other
+  // offset is unused)
+  const uint64_t desc_b = sm90::desc_sw128(b, 1024, 1024);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {  // k16 steps: 16 rows of 128 bytes
+    sm90::wgmma_rs_m64n64k16_tn<T>(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                                   hi[4 * kk + 3], desc_b + 128 * kk);
+    sm90::wgmma_rs_m64n64k16_tn<T>(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                                   lo[4 * kk + 3], desc_b + 128 * kk);
+  }
+}
+
+// rows `row` and `row` + 8 of an m64n64 fragment (columns 8n + 2t, + 1) times
+// `mul`, rounded to T, into a [S, 64] slice; rows at or past `valid` dropped
+template <typename T>
+__device__ __forceinline__ void store_rows(void* out, long long row_stride, int valid, int row,
+                                           int t, const float (&acc)[32], float mul) {
+  T* base = reinterpret_cast<T*>(out);
 #pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
-      uint32_t b[2];
-      ldsm_x2(b, tile + (t * 8 + (l16 % 8)) * LDT + kk * 16 + (l16 / 8) * 8);
-      Ops<T>::mma(c[t], a[kk], b);
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row < valid)
+      *reinterpret_cast<uint32_t*>(base + (long long)row * row_stride + col) =
+          Ops<T>::pack(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+    if (row + 8 < valid)
+      *reinterpret_cast<uint32_t*>(base + (long long)(row + 8) * row_stride + col) =
+          Ops<T>::pack(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
+  }
+}
+
+// dK/dV: P^T and dS^T in place of S^T (s) and dP^T (dp), whose columns are
+// the q rows of one tile; lse and delta of those rows in shared memory; q rows
+// at or past `valid` get P = 0
+__device__ __forceinline__ void p_ds_cols(float (&s)[32], float (&dp)[32], const float* lse,
+                                          const float* delta, int valid, int t, float scale_log2e) {
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse + c);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + c);
+    const float l0 = l.x * LOG2E, l1 = l.y * LOG2E;
+    float p[4] = {ex2(fmaf(s[4 * n], scale_log2e, -l0)), ex2(fmaf(s[4 * n + 1], scale_log2e, -l1)),
+                  ex2(fmaf(s[4 * n + 2], scale_log2e, -l0)),
+                  ex2(fmaf(s[4 * n + 3], scale_log2e, -l1))};
+    if (c >= valid) p[0] = p[2] = 0.f;
+    if (c + 1 >= valid) p[1] = p[3] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dp[4 * n + e] = p[e] * (dp[4 * n + e] - ((e & 1) ? dl.y : dl.x));
+      s[4 * n + e] = p[e];
     }
   }
 }
 
-// acc[16 x 64] += X[16 x BN] . tile, with X the fp32 C fragments `x` and
-// tile a [BN, 64] shared tile (ldmatrix .trans). X enters the tensor cores
-// as hi + lo, two 16-bit parts.
-template <typename T>
-__device__ __forceinline__ void mma_split_ab(float (&acc)[D / 8][4], const float (&x)[BN / 8][4],
-                                             const T* tile, int lane) {
-  const int l16 = lane % 16;
+// dQ: dS in place of S (s), whose rows are this thread's two q rows (lse
+// pre-multiplied by log2 e) and columns the kv rows of one tile; kv rows at or
+// past `valid` get P = 0
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32], float lse_lo,
+                                        float lse_hi, float dl_lo, float dl_hi, int valid, int t,
+                                        float scale_log2e) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    uint32_t hi[4], lo[4];
+  for (int n = 0; n < BN / 8; ++n) {
+    const int c = 8 * n + 2 * t;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      // the C fragment of n tiles 2kk, 2kk+1 is the A fragment of k step kk:
-      // reg 0: (row g, tile 2kk), 1: (row g+8, tile 2kk), 2: (g, 2kk+1), 3: (g+8, 2kk+1)
-      const float* src = x[2 * kk + (r >> 1)] + (r & 1) * 2;
-      const float h0 = Ops<T>::to_f(Ops<T>::from_f(src[0]));
-      const float h1 = Ops<T>::to_f(Ops<T>::from_f(src[1]));
-      hi[r] = Ops<T>::pack(h0, h1);
-      lo[r] = Ops<T>::pack(src[0] - h0, src[1] - h1);
-    }
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      uint32_t b[2];
-      ldsm_x2_trans(b, tile + (kk * 16 + l16) * LDT + t * 8);
-      Ops<T>::mma(acc[t], hi, b);
-      Ops<T>::mma(acc[t], lo, b);
+    for (int e = 0; e < 4; ++e) {
+      const float pv = (c + (e & 1)) < valid
+                           ? ex2(fmaf(s[4 * n + e], scale_log2e, -(e < 2 ? lse_lo : lse_hi)))
+                           : 0.f;
+      s[4 * n + e] = pv * (dp[4 * n + e] - (e < 2 ? dl_lo : dl_hi));
     }
   }
 }
 
 template <typename T>
-__device__ __forceinline__ void store_rows(T* base, long long row_stride, int rows_valid, int row0,
-                                           const float (&acc)[D / 8][4], float mul, int lane) {
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int r_lo = row0 + g;
-  const int r_hi = r_lo + 8;
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int col = t * 8 + t4 * 2;
-    if (r_lo < rows_valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)r_lo * row_stride + col) =
-          Ops<T>::pack(acc[t][0] * mul, acc[t][1] * mul);
-    if (r_hi < rows_valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)r_hi * row_stride + col) =
-          Ops<T>::pack(acc[t][2] * mul, acc[t][3] * mul);
-  }
-}
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + OWN_BYTES;
+  unsigned char* sQ = sV + OWN_BYTES;
+  unsigned char* sdO = sQ + STAGES * TILE_BYTES;
+  float* sLse = reinterpret_cast<float*>(sdO + STAGES * TILE_BYTES);
+  float* sDelta = sLse + STAGES * BN;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + STAGES * BN);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p) {
-  __shared__ __align__(16) T sK[BM * LDT];
-  __shared__ __align__(16) T sV[BM * LDT];
-  __shared__ __align__(16) T sQ[BN * LDT];
-  __shared__ __align__(16) T sdO[BN * LDT];
-  __shared__ float sLse[BN];
-  __shared__ float sDelta[BN];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int t4 = lane % 4;
-  const int k0 = blockIdx.x * BM;
+  const int k0 = blockIdx.x * ROWS;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
-
-  const T* qg = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* kg = reinterpret_cast<const T*>(p.k) + bb * p.k_sb + hh * p.k_sh;
-  const T* vg = reinterpret_cast<const T*>(p.v) + bb * p.v_sb + hh * p.v_sh;
-  const T* dog = reinterpret_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
-  const float* lseg = p.lse + (long long)bb * p.sq * p.h + hh;
-  const float* deltag = p.delta + (long long)bb * p.sq * p.h + hh;
-
-  load_tile_async<T, BM>(sK, kg, p.k_ss, k0, p.sk, tid);
-  load_tile_async<T, BM>(sV, vg, p.v_ss, k0, p.sk, tid);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a_frags(ka, sK, warp * 16, lane);
-  load_a_frags(va, sV, warp * 16, lane);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
-
   const int n_q = (p.sq + BN - 1) / BN;
-  for (int i = 0; i < n_q; ++i) {
-    const int q0 = i * BN;
-    __syncthreads();  // the previous q tile is no longer read
-    load_tile_async<T, BN>(sQ, qg, p.q_ss, q0, p.sq, tid);
-    load_tile_async<T, BN>(sdO, dog, p.do_ss, q0, p.sq, tid);
-    cp_async_commit();
-    for (int r = tid; r < BN; r += NTHREADS) {
-      const bool valid = q0 + r < p.sq;
-      sLse[r] = valid ? lseg[(long long)(q0 + r) * p.h] : 0.f;
-      sDelta[r] = valid ? deltag[(long long)(q0 + r) * p.h] : 0.f;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&full[st], 1);
+      sm90::mbar_init(&empty[st], C * 4);  // one arrival per consumer warp
     }
-    cp_async_wait_all();
-    __syncthreads();
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows
-    float st[BN / 8][4], dpt[BN / 8][4];
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
-    mma_abt<T>(st, ka, sQ, lane);
-    mma_abt<T>(dpt, va, sdO, lane);
-
-    // P^T and dS^T in place; the fragment's columns are q rows
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * 8 + t4 * 2 + (e & 1);
-        const float pv = q0 + col < p.sq ? expf(st[t][e] * p.scale - sLse[col]) : 0.f;
-        st[t][e] = pv;
-        dpt[t][e] = pv * (dpt[t][e] - sDelta[col]);
+  if (wg == 0) {
+    // producer: one thread loads K, V and keeps the q-tile ring full
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_tensormap(&tm_q);
+      sm90::prefetch_tensormap(&tm_do);
+      const long long vec0 = ((long long)bb * p.h + hh) * (n_q * BN);
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * OWN_BYTES);
+      sm90::tma_load_4d(sK, &tm_k, kv_full, 0, k0, hh, bb);
+      sm90::tma_load_4d(sV, &tm_v, kv_full, 0, k0, hh, bb);
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) sm90::mbar_wait(&empty[st], ((i / STAGES) - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full[st], 2 * TILE_BYTES + 2 * VEC_BYTES);
+        sm90::tma_load_4d(sQ + st * TILE_BYTES, &tm_q, &full[st], 0, i * BN, hh, bb);
+        sm90::tma_load_4d(sdO + st * TILE_BYTES, &tm_do, &full[st], 0, i * BN, hh, bb);
+        sm90::bulk_load(sLse + st * BN, p.lse + vec0 + i * BN, VEC_BYTES, &full[st]);
+        sm90::bulk_load(sDelta + st * BN, p.delta + vec0 + i * BN, VEC_BYTES, &full[st]);
       }
     }
-    mma_split_ab<T>(dv, st, sdO, lane);   // dV += P^T dO
-    mma_split_ab<T>(dk, dpt, sQ, lane);   // dK += dS^T Q
-  }
+  } else {
+    // consumer warpgroup cw: kv rows k0 + 64 cw .. + 63
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;  // fragment row (and row + 8) within the warp's 16
+    const int t = lane % 4;  // fragment column pair
+    const unsigned char* sKw = sK + cw * TILE_BYTES;
+    const unsigned char* sVw = sV + cw * TILE_BYTES;
+    const float scale_log2e = p.scale * LOG2E;
 
-  T* dkg = reinterpret_cast<T*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh;
-  T* dvg = reinterpret_cast<T*>(p.dv) + bb * p.dv_sb + hh * p.dv_sh;
-  store_rows<T>(dkg, p.dk_ss, p.sk, k0 + warp * 16, dk, p.scale, lane);
-  store_rows<T>(dvg, p.dv_ss, p.sk, k0 + warp * 16, dv, 1.f, lane);
+    float s[32], dp[32], dk[32], dv[32];
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(kv_full, 0);
+    sm90::mbar_wait(&full[0], 0);
+    sm90::wgmma_fence();
+    issue_ss<T>(s, sKw, sQ);     // S^T = K Q^T
+    issue_ss<T>(dp, sVw, sdO);   // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+    sm90::fence_operands(dp);
+    p_ds_cols(s, dp, sLse, sDelta, p.sq, t, scale_log2e);
+    split<T>(s, p_hi, p_lo);
+    split<T>(dp, ds_hi, ds_lo);
+    for (int i = 1; i < n_q; ++i) {
+      const int st = i % STAGES;
+      const int prev = (i - 1) % STAGES;
+      sm90::mbar_wait(&full[st], (i / STAGES) & 1);
+      sm90::wgmma_fence();
+      issue_ss<T>(s, sKw, sQ + st * TILE_BYTES);
+      issue_ss<T>(dp, sVw, sdO + st * TILE_BYTES);
+      sm90::wgmma_commit();
+      issue_rs<T>(dv, p_hi, p_lo, sdO + prev * TILE_BYTES);  // dV += P^T dO
+      issue_rs<T>(dk, ds_hi, ds_lo, sQ + prev * TILE_BYTES);  // dK += dS^T Q
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // tile i's S^T, dP^T are in; tile i-1's products run on
+      sm90::fence_operands(s);
+      sm90::fence_operands(dp);
+      p_ds_cols(s, dp, sLse + st * BN, sDelta + st * BN, p.sq - i * BN, t, scale_log2e);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(dv);
+      sm90::fence_operands(dk);
+      if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+      split<T>(s, p_hi, p_lo);
+      split<T>(dp, ds_hi, ds_lo);
+    }
+    const int last = (n_q - 1) % STAGES;
+    sm90::wgmma_fence();
+    issue_rs<T>(dv, p_hi, p_lo, sdO + last * TILE_BYTES);
+    issue_rs<T>(dk, ds_hi, ds_lo, sQ + last * TILE_BYTES);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(dv);
+    sm90::fence_operands(dk);
+
+    const int row = k0 + cw * 64 + warp * 16 + g;
+    store_rows<T>(static_cast<T*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh, p.dk_ss, p.sk, row, t, dk,
+                  p.scale);
+    store_rows<T>(static_cast<T*>(p.dv) + bb * p.dv_sb + hh * p.dv_sh, p.dv_ss, p.sk, row, t, dv,
+                  1.f);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) {
-  __shared__ __align__(16) T sQ[BM * LDT];
-  __shared__ __align__(16) T sdO[BM * LDT];
-  __shared__ __align__(16) T sK[BN * LDT];
-  __shared__ __align__(16) T sV[BN * LDT];
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = sQ + OWN_BYTES;
+  unsigned char* sK = sdO + OWN_BYTES;
+  unsigned char* sV = sK + STAGES * TILE_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * ROWS;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
-
-  const T* qg = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* kg = reinterpret_cast<const T*>(p.k) + bb * p.k_sb + hh * p.k_sh;
-  const T* vg = reinterpret_cast<const T*>(p.v) + bb * p.v_sb + hh * p.v_sh;
-  const T* dog = reinterpret_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
-
-  load_tile_async<T, BM>(sQ, qg, p.q_ss, q0, p.sq, tid);
-  load_tile_async<T, BM>(sdO, dog, p.do_ss, q0, p.sq, tid);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-  load_a_frags(qa, sQ, warp * 16, lane);
-  load_a_frags(doa, sdO, warp * 16, lane);
-
-  // lse and delta of the two q rows this thread's fragments hold
-  const int r_lo = q0 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-  const long long base = (long long)bb * p.sq * p.h + hh;
-  const float lse_lo = r_lo < p.sq ? p.lse[base + (long long)r_lo * p.h] : 0.f;
-  const float lse_hi = r_hi < p.sq ? p.lse[base + (long long)r_hi * p.h] : 0.f;
-  const float dl_lo = r_lo < p.sq ? p.delta[base + (long long)r_lo * p.h] : 0.f;
-  const float dl_hi = r_hi < p.sq ? p.delta[base + (long long)r_hi * p.h] : 0.f;
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
-
   const int n_kv = (p.sk + BN - 1) / BN;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous kv tile is no longer read
-    load_tile_async<T, BN>(sK, kg, p.k_ss, k0, p.sk, tid);
-    load_tile_async<T, BN>(sV, vg, p.v_ss, k0, p.sk, tid);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-    mma_abt<T>(s, qa, sK, lane);    // S = Q K^T
-    mma_abt<T>(dp, doa, sV, lane);  // dP = dO V^T
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&full[st], 1);
+      sm90::mbar_init(&empty[st], C * 4);  // one arrival per consumer warp
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
 
-    // dS in place of S; the fragment's columns are kv rows
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + t * 8 + t4 * 2 + (e & 1);
-        const float lse = e < 2 ? lse_lo : lse_hi;
-        const float delta = e < 2 ? dl_lo : dl_hi;
-        const float pv = col < p.sk ? expf(s[t][e] * p.scale - lse) : 0.f;
-        s[t][e] = pv * (dp[t][e] - delta);
+  if (wg == 0) {
+    // producer: one thread loads Q, dO and keeps the kv-tile ring full
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_tensormap(&tm_k);
+      sm90::prefetch_tensormap(&tm_v);
+      sm90::mbar_arrive_expect_tx(q_full, 2 * OWN_BYTES);
+      sm90::tma_load_4d(sQ, &tm_q, q_full, 0, q0, hh, bb);
+      sm90::tma_load_4d(sdO, &tm_do, q_full, 0, q0, hh, bb);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) sm90::mbar_wait(&empty[st], ((j / STAGES) - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full[st], 2 * TILE_BYTES);
+        sm90::tma_load_4d(sK + st * TILE_BYTES, &tm_k, &full[st], 0, j * BN, hh, bb);
+        sm90::tma_load_4d(sV + st * TILE_BYTES, &tm_v, &full[st], 0, j * BN, hh, bb);
       }
     }
-    mma_split_ab<T>(dq, s, sK, lane);  // dQ += dS K
+  } else {
+    // consumer warpgroup cw: q rows q0 + 64 cw .. + 63
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const unsigned char* sQw = sQ + cw * TILE_BYTES;
+    const unsigned char* sdOw = sdO + cw * TILE_BYTES;
+    const float scale_log2e = p.scale * LOG2E;
+
+    // lse (times log2 e) and delta of this thread's two q rows
+    const int row = q0 + cw * 64 + warp * 16 + g;
+    const long long vec0 = ((long long)bb * p.h + hh) * ((p.sq + BN - 1) / BN * BN);
+    const float lse_lo = row < p.sq ? p.lse[vec0 + row] * LOG2E : 0.f;
+    const float lse_hi = row + 8 < p.sq ? p.lse[vec0 + row + 8] * LOG2E : 0.f;
+    const float dl_lo = row < p.sq ? p.delta[vec0 + row] : 0.f;
+    const float dl_hi = row + 8 < p.sq ? p.delta[vec0 + row + 8] : 0.f;
+
+    float s[32], dp[32], dq[32];
+    uint32_t ds_hi[16], ds_lo[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+    sm90::mbar_wait(q_full, 0);
+    sm90::mbar_wait(&full[0], 0);
+    sm90::wgmma_fence();
+    issue_ss<T>(s, sQw, sK);     // S = Q K^T
+    issue_ss<T>(dp, sdOw, sV);   // dP = dO V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+    sm90::fence_operands(dp);
+    ds_rows(s, dp, lse_lo, lse_hi, dl_lo, dl_hi, p.sk, t, scale_log2e);
+    split<T>(s, ds_hi, ds_lo);
+    for (int j = 1; j < n_kv; ++j) {
+      const int st = j % STAGES;
+      const int prev = (j - 1) % STAGES;
+      sm90::mbar_wait(&full[st], (j / STAGES) & 1);
+      sm90::wgmma_fence();
+      issue_ss<T>(s, sQw, sK + st * TILE_BYTES);
+      issue_ss<T>(dp, sdOw, sV + st * TILE_BYTES);
+      sm90::wgmma_commit();
+      issue_rs<T>(dq, ds_hi, ds_lo, sK + prev * TILE_BYTES);  // dQ += dS K
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // tile j's S, dP are in; tile j-1's dS K runs on
+      sm90::fence_operands(s);
+      sm90::fence_operands(dp);
+      ds_rows(s, dp, lse_lo, lse_hi, dl_lo, dl_hi, p.sk - j * BN, t, scale_log2e);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(dq);
+      if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+      split<T>(s, ds_hi, ds_lo);
+    }
+    const int last = (n_kv - 1) % STAGES;
+    sm90::wgmma_fence();
+    issue_rs<T>(dq, ds_hi, ds_lo, sK + last * TILE_BYTES);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(dq);
+
+    store_rows<T>(static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh, p.dq_ss, p.sq, row, t, dq,
+                  p.scale);
   }
-
-  T* dqg = reinterpret_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh;
-  store_rows<T>(dqg, p.dq_ss, p.sq, q0 + warp * 16, dq, p.scale, lane);
-}
-
-Params make_params(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                   int sq, int sk, int h, const long long* st, float scale) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse = lse;
-  p.delta = delta;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  p.sq = sq;
-  p.sk = sk;
-  p.h = h;
-  long long* dst[21] = {&p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,  &p.v_sb,
-                        &p.v_ss,  &p.v_sh,  &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss,
-                        &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
-  for (int i = 0; i < 21; ++i) *dst[i] = st[i];
-  p.scale = scale;
-  return p;
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, int b, bool dkv, cudaStream_t stream) {
-  if (dkv) {
-    const dim3 grid((p.sk + BM - 1) / BM, p.h, b);
-    flash_bwd_dkv_kernel<T><<<grid, NTHREADS, 0, stream>>>(p);
-  } else {
-    const dim3 grid((p.sq + BM - 1) / BM, p.h, b);
-    flash_bwd_dq_kernel<T><<<grid, NTHREADS, 0, stream>>>(p);
-  }
+cudaError_t launch(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+                   const long long* st, const Params& p, int b, cudaStream_t stream) {
+  using sm90::make_map;
+  constexpr bool is_half = std::is_same<T, __half>::value;
+  // the CTA's own rows in one box, the streamed tiles in 64-row boxes
+  const int q_rows = dkv ? BN : ROWS;
+  const int kv_rows = dkv ? ROWS : BN;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!make_map(&tm_q, q, is_half, p.sq, p.h, b, st[0], st[1], st[2], q_rows) ||
+      !make_map(&tm_k, k, is_half, p.sk, p.h, b, st[3], st[4], st[5], kv_rows) ||
+      !make_map(&tm_v, v, is_half, p.sk, p.h, b, st[6], st[7], st[8], kv_rows) ||
+      !make_map(&tm_do, dout, is_half, p.sq, p.h, b, st[9], st[10], st[11], q_rows))
+    return cudaErrorInvalidValue;
+  auto kernel = dkv ? &flash_bwd_dkv_sm90_kernel<T> : &flash_bwd_dq_sm90_kernel<T>;
+  const size_t smem = dkv ? DKV_SMEM : DQ_SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((dkv ? p.sk : p.sq) + ROWS - 1) / ROWS, p.h, b);
+  kernel<<<grid, NTHREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
   return cudaGetLastError();
 }
 
@@ -439,12 +527,24 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
         const void* delta, void* dq, void* dk, void* dv, int dtype, int b, int sq, int sk, int h,
         int d, const void* strides, float scale, void* stream) {
   if (d != D || b > 65535 || h > 65535 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, dout, static_cast<const float*>(lse),
-                               static_cast<const float*>(delta), dq, dk, dv, sq, sk, h,
-                               static_cast<const long long*>(strides), scale);
+  // strides (batch, seq, head) of q, k, v, dO, dQ, dK, dV
+  const long long* st = static_cast<const long long*>(strides);
+  Params p;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  long long* dst[9] = {&p.dq_sb, &p.dq_ss, &p.dq_sh, &p.dk_sb, &p.dk_ss,
+                       &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
+  for (int i = 0; i < 9; ++i) *dst[i] = st[12 + i];
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<__nv_bfloat16>(p, b, dkv, s);
-  if (dtype == 1) return (int)launch<__half>(p, b, dkv, s);
+  if (dtype == 0) return (int)launch<__nv_bfloat16>(dkv, q, k, v, dout, st, p, b, s);
+  if (dtype == 1) return (int)launch<__half>(dkv, q, k, v, dout, st, p, b, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -687,46 +687,9 @@ __global__ void __launch_bounds__(d64::NTHREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the CUDA driver's cuTensorMapEncodeTiled, found through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D tensor map (D, S, H, B) over a [B, S, H, D] tensor with d = 64 and
-// element strides (sb, ss, sh), boxes of `rows` x 64, 128-byte swizzled;
-// rows past the end read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, bool is_half, int s, int h, int b, long long sb,
-              long long ss, long long sh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d64::D, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)d64::D, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, is_half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                4, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T>
 cudaError_t launch_d64(const Params& a, int b, cudaStream_t stream) {
+  using sm90::make_map;
   constexpr bool is_half = std::is_same<T, __half>::value;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   if (!make_map(&tm_q, a.q, is_half, a.sq, a.h, b, a.q_sb, a.q_ss, a.q_sh, d64::BQ) ||

@@ -1,6 +1,8 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's CUDA sources:
-// mbarriers, TMA tensor loads and stores, warpgroup matrix multiply (wgmma)
-// with its shared-memory descriptors, named barriers and setmaxnreg.
+// mbarriers, TMA tensor loads and stores and 1-D bulk copies, warpgroup
+// matrix multiply (wgmma) with its shared-memory descriptors, named barriers
+// and setmaxnreg; and, on the host, the TMA tensor maps over [B, S, H, 64]
+// tensors.
 //
 // Operand layouts follow the PTX ISA: a tile that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B (rows of 128 bytes, the 16-byte chunk c of row
@@ -16,6 +18,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -83,6 +86,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory
+// at `dst`, both 16-byte aligned; completes `bytes` announced on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -217,6 +231,28 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
   }
 }
 
+// d[32] (+)= A B for a 64 x 64 tile, k = 16: A (64 x 16) and B (64 rows of
+// 16) both K-major in shared memory; scale_d = 0 overwrites d
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " SA_SM90_REGS32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : SA_SM90_ACC32(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SA_SM90_REGS32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : SA_SM90_ACC32(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
 // d[32] += A B for a 64 x 64 tile, k = 16: A (64 x 16) from registers in the
 // m16n8k16 fragment layout of each warp's 16 rows, B (16 rows of 64) MN-major
 // in shared memory
@@ -239,6 +275,48 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tn(float (&d)[32], uint32_t a
         : SA_SM90_ACC32(d)
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
   }
+}
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps (host)
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled, found through the runtime, so a
+// library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D tensor map (D, S, H, B) over a [B, S, H, D] 16-bit tensor with
+// d = 64 and element strides (sb, ss, sh), boxes of `rows` x 64, 128-byte
+// swizzled; rows past the end read as zeros and are not written.
+inline bool make_map(CUtensorMap* map, const void* base, bool is_half, int s, int h, int b,
+                     long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, is_half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -16,7 +16,10 @@ Backward: `csrc/flash_attention_bwd.cu` replaces `_bwd_dkv_kernel` and
 o, its lse and the output gradient dO it computes, in fp32,
 P = exp(s - lse), dP = dO V^T, delta = sum(dO * o), dS = P * (dP - delta),
 dK = dS^T (scale q), dV = P^T dO and dQ = scale (dS K), with q * scale not
-rounded (unlike the forward). Head dim 64 only.
+rounded (unlike the forward). Head dim 64 only. Both kernels are Hopper
+designs (TMA loads into a ring of tiles, wgmma, a producer warpgroup and two
+consumers); they read lse and delta as [B, H, Sq padded to 64]
+(`bwd_vectors`).
 
 Resident forward: `csrc/flash_attention_resident.cu` replaces
 `_fwd_kernel_resident` (driven there by `_flash_fwd_resident`): the same
@@ -66,6 +69,9 @@ BWD_SOURCE = "flash_attention_bwd"
 DKV_KERNEL = "flash_attention_bwd_dkv"
 DQ_KERNEL = "flash_attention_bwd_dq"
 BWD_HEAD_DIMS = (64,)
+# the backward kernels' streamed tiles: q rows (dK/dV) and kv rows (dQ); lse
+# and delta are padded to a whole number of them
+BWD_TILE = 64
 # the resident forward: kv in 64-row chunks, at most 8 chunks (128 KiB of K
 # and V at 16 bits) per CTA, at most 8 CTAs (the portable cluster size) per
 # (batch, head)
@@ -181,7 +187,8 @@ def _kernel():
 def _bwd_kernels() -> dict:
     """Build (first use only) and bind the backward's two C entry points.
     Both take (q, k, v, dO, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d,
-    strides[21], scale, stream); dkv leaves dq null, dq leaves dk, dv null."""
+    strides[21], scale, stream), lse and delta as `bwd_vectors` lays them
+    out; dkv leaves dq null, dq leaves dk, dv null."""
     lib = ctypes.CDLL(str(build.build_kernel(BWD_SOURCE)))
     fns = {}
     for name, symbol in ((DKV_KERNEL, "sa_flash_attention_bwd_dkv"),
@@ -406,6 +413,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float | None = None):
     return grads
 
 
+def bwd_vectors(lse: torch.Tensor, delta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """lse and delta ([B, Sq, H] fp32) as the backward kernels read them:
+    [B, H, Sq_pad] fp32, contiguous, Sq padded with zeros to a multiple of
+    `BWD_TILE`, so that one tile's values are one 16-byte-aligned run that
+    TMA can copy (the [B, Sq, H] rows are 4 H bytes apart). `contiguous`
+    because a pad of 0 keeps the permuted strides."""
+    pad = _round_up(lse.shape[1], BWD_TILE) - lse.shape[1]
+    return tuple(torch.nn.functional.pad(x.permute(0, 2, 1), (0, pad)).contiguous()
+                 for x in (lse, delta))
+
+
 def bwd_launchers(q, k, v, o, lse, do, scale: float):
     """Checks the CUDA inputs, computes delta and allocates dq, dk, dv;
     returns them and, by kernel name, a callable that launches that kernel
@@ -424,8 +442,7 @@ def bwd_launchers(q, k, v, o, lse, do, scale: float):
     _check_layout("dO", do, q.dtype)
     if lse.shape != (b, sq, h) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [B, Sq, H], got {lse.dtype} {tuple(lse.shape)}")
-    lse = lse.contiguous()
-    delta = attention_delta(o, do).contiguous()
+    lse, delta = bwd_vectors(lse, attention_delta(o, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)

@@ -94,6 +94,20 @@ def test_head_dim_512_backward_raises_naming_item_9():
         out.sum().backward()
 
 
+@pytest.mark.parametrize("sq", [1, 64, 300])
+def test_bwd_vectors_pad_lse_and_delta_to_whole_tiles(sq):
+    # the kernels read lse and delta as [B, H, Sq_pad], Sq padded with zeros
+    # to whole 64-row tiles, so that one tile's values are one aligned run
+    gen = torch.Generator().manual_seed(sq)
+    lse, delta = (torch.randn((2, sq, 3), generator=gen) for _ in range(2))
+    sq_pad = -(-sq // fa.BWD_TILE) * fa.BWD_TILE
+    for x, laid in zip((lse, delta), fa.bwd_vectors(lse, delta)):
+        assert laid.shape == (2, 3, sq_pad) and laid.dtype == torch.float32
+        assert laid.is_contiguous()
+        torch.testing.assert_close(laid[..., :sq], x.permute(0, 2, 1), rtol=0, atol=0)
+        assert not laid[..., sq:].any()
+
+
 def _split(x, dt, single_part):
     """How the kernels feed an fp32 operand to the 16-bit tensor cores:
     hi + lo, or hi alone (a fault)."""
@@ -101,11 +115,15 @@ def _split(x, dt, single_part):
     return hi if single_part else hi + (x - hi).to(dt).float()
 
 
-def _emulated_bwd(q, k, v, o, lse, do, tile=64, drop_q_tile=None, no_delta=False,
-                  double_scale=False, single_part=False):
+def _emulated_bwd(q, k, v, o, lse, do, tile=fa.BWD_TILE, kv_tile=fa.BWD_TILE, k_step=16,
+                  drop_q_tile=None, no_delta=False, double_scale=False, single_part=False):
     """The CUDA kernels' algorithm in plain PyTorch: dK/dV summed over q
-    tiles of `tile` rows, dQ over kv tiles, P and dS fed to the products as
-    16-bit hi + lo, fp32 accumulation. The keyword arguments inject faults."""
+    tiles of `tile` rows (the height of the dK/dV kernel's ring), dQ over kv
+    tiles of `kv_tile` rows (the dQ kernel's), P and dS fed to the products
+    as 16-bit hi + lo, fp32 accumulation in the wgmma kernels' order: each
+    `k_step` of a tile's reduction adds its hi product and then its lo
+    product to the fp32 accumulator (k_step=None: hi + lo summed first, one
+    product per tile). The last four keyword arguments inject faults."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -117,26 +135,47 @@ def _emulated_bwd(q, k, v, o, lse, do, tile=64, drop_q_tile=None, no_delta=False
         dp = torch.einsum("bqhd,bkhd->bhqk", dos, vs)
         return p, p * (dp - delta_s.permute(0, 2, 1)[..., None])
 
+    def add_product(acc, eq, x, y, axis):
+        # acc += x . y, reduced over `axis` of x and axis 1 of y
+        if k_step is None:
+            acc += torch.einsum(eq, _split(x, dt, single_part), y)
+            return
+        n = x.shape[axis]
+        for s0 in range(0, n, k_step):
+            xs, ys = x.narrow(axis, s0, min(k_step, n - s0)), y.narrow(1, s0, min(k_step, n - s0))
+            hi = xs.to(dt).float()
+            acc += torch.einsum(eq, hi, ys)
+            if not single_part:
+                acc += torch.einsum(eq, (xs - hi).to(dt).float(), ys)
+
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for i, q0 in enumerate(range(0, q.shape[1], tile)):
         if i == drop_q_tile:
             continue
         sl = slice(q0, q0 + tile)
         p, ds = p_ds(qf[:, sl], kf, vf, dof[:, sl], lse[:, sl], delta[:, sl])
-        dv += torch.einsum("bhqk,bqhd->bkhd", _split(p, dt, single_part), dof[:, sl])
-        dk += torch.einsum("bhqk,bqhd->bkhd", _split(ds, dt, single_part), qf[:, sl])
+        add_product(dv, "bhqk,bqhd->bkhd", p, dof[:, sl], 2)
+        add_product(dk, "bhqk,bqhd->bkhd", ds, qf[:, sl], 2)
     dq = torch.zeros_like(qf)
-    for k0 in range(0, k.shape[1], tile):
-        sl = slice(k0, k0 + tile)
+    for k0 in range(0, k.shape[1], kv_tile):
+        sl = slice(k0, k0 + kv_tile)
         _, ds = p_ds(qf, kf[:, sl], vf[:, sl], dof, lse, delta)
-        dq += torch.einsum("bhqk,bkhd->bqhd", _split(ds, dt, single_part), kf[:, sl])
+        add_product(dq, "bhqk,bkhd->bqhd", ds, kf[:, sl], 3)
     dk_scale = scale * scale if double_scale else scale
     return (dq * scale).to(dt), (dk * dk_scale).to(dt), (dv).to(dt)
 
 
 @pytest.mark.parametrize("sq,sk,h,dtype", [(1024, 1024, 5, torch.bfloat16),
                                            (640, 576, 2, torch.bfloat16),
-                                           (1024, 1024, 2, torch.float16)])
+                                           (1024, 1024, 2, torch.float16),
+                                           # the wgmma kernels' edges: q off the q tile
+                                           # (64 rows) and the dQ kernel's 128-row one,
+                                           # kv below and across the dK/dV kernel's
+                                           # 128-row kv block
+                                           (300, 1024, 2, torch.bfloat16),
+                                           (300, 1024, 2, torch.float16),
+                                           (320, 100, 3, torch.bfloat16),
+                                           (256, 300, 2, torch.float16)])
 def test_grad_tolerance_accepts_the_kernels_rounding_and_rejects_faults(sq, sk, h, dtype):
     gen = torch.Generator().manual_seed(sq + h)
     q = torch.randn((1, sq, h, 64), generator=gen).to(dtype)

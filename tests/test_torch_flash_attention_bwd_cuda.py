@@ -19,7 +19,15 @@ SHAPES = [((16, 4096, 5, 64), 4096, torch.bfloat16),
           ((1, 300, 2, 64), 300, torch.bfloat16),
           ((1, 300, 2, 64), 300, torch.float16),
           ((2, 640, 2, 64), 576, torch.bfloat16),
-          ((2, 640, 2, 64), 576, torch.float16)]
+          ((2, 640, 2, 64), 576, torch.float16),
+          # the wgmma kernels' edges: q off the 64-row q tile (dK/dV) and the
+          # 128-row one (dQ) against 4096 keys; kv below and across the
+          # 128-row kv block (dK/dV) and off the 64-row kv tile (dQ); fp16 at
+          # training level 1
+          ((1, 200, 3, 64), 4096, torch.bfloat16),
+          ((2, 256, 3, 64), 100, torch.bfloat16),
+          ((2, 256, 3, 64), 300, torch.bfloat16),
+          ((16, 1024, 10, 64), 1024, torch.float16)]
 
 
 def _card():
@@ -52,6 +60,24 @@ def test_cuda_backward_kernels_match_plain_version(shape, sk, dtype):
         assert fa.flash_attention_bwd.launches[name] == before.get(name, 0) + 1
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
+        assert bool(((g.float() - w.float()).abs() <= fa.grad_tolerance(w)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_take_strided_views_of_one_qkv_tensor():
+    # q, k, v as views of one [B, S, 3, H, D] tensor: the tensor maps read
+    # them through their strides, and autograd hands the gradients back
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fused = torch.randn((2, 640, 3, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (fused[:, :, i] for i in range(3))
+    do = torch.randn((2, 640, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    assert not qkv[0].is_contiguous()
+    got = torch.autograd.grad(fa.flash_attention(*qkv), qkv, do)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
         assert bool(((g.float() - w.float()).abs() <= fa.grad_tolerance(w)).all())
 
 
