@@ -12,24 +12,27 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            forward, backward) from csrc/ with nvcc, one process per source,
            in parallel; prints the ptxas report and, from cuobjdump -sass,
            the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
-           d = 64 forward and of both backward kernels: fails on a spill in
-           the forward or the backward, if one of those three kernels uses
-           other than its launch-bound register count (setmaxnreg needs it),
-           or if HGMMA or UTMALDG is missing from one of them
+           d = 64 forward, the resident forward and both backward kernels:
+           fails on a spill in any of the three libraries, if one of those
+           four kernels uses other than its launch-bound register count
+           (setmaxnreg needs it), or if HGMMA or UTMALDG is missing from one
+           of their instantiations
   kernels  the streamed forward kernel against its plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
            at ragged and fp16 shapes, with the d = 64 kernel's edges (q and
            kv tails, strided views of a fused QKV tensor); the resident
-           forward kernel against
-           the plain version (lse too) and against the streamed kernel at
-           the UNet's generate and training shapes and ragged bf16/fp16
-           ones; the backward kernels (through the autograd Function)
+           forward kernel, in clusters of 2 CTAs (how many fit the card at
+           once printed and checked), against the plain version (lse too) and
+           against the streamed kernel at the UNet's generate and training
+           shapes, ragged bf16/fp16 ones and its edges (q and kv tails, a
+           cluster whose last CTA has no q rows, fused QKV views, fp16 at
+           UNet level 1); the backward kernels (through the autograd Function)
            against the plain backward within `grad_tolerance` at the
            training shapes and ragged bf16/fp16 ones; then every kernel
            timed with CUDA events at the paths' shapes beside its bound, its
            plain version and the PyTorch library call (the resident one
-           beside the streamed one too); the streamed forward's rows also
-           beside its earlier design's time and, at d = 64, the
+           beside the streamed one too); the forwards'
+           rows also beside their earlier design's time and, at d = 64, the
            exponentials' bound; the backward's beside their earlier design's
            times and the bound of the products they issue (P and dS split
            in two)
@@ -47,7 +50,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            budget at 4 MiB: 5 tiles in groups of 1 and 5-step segments; the
            exit, the files written, 5 progress lines, the resident and
            streamed launches (10 x 5 x steps and 4) and the 4 calls the
-           card's capacity sent to the streamed kernel are asserted
+           resident kernel refuses (the VAE's d = 512) are asserted; then
+           the same request at budget 0 (10 x 5 x steps + 4 streamed
+           launches, none resident or refused), and the two times' ratio
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
            one warm-up step and three timed steps through make_train_step;
@@ -107,17 +112,31 @@ PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("train_level1", (16, 1024, 10, 64), True))
 # the backward kernels' shapes on the training path
 TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)))
-# the resident kernel's checks: (label, q shape, kv length, dtype, with lse);
-# generate's and the 64-frame request's UNet levels (timed too), the
-# training shapes with lse, and tests/test_ops.py's ragged shapes
+# the resident kernel's checks (each with and without lse): (label, q shape,
+# kv length, dtype, fused); generate's and the
+# 64-frame request's UNet levels (timed too), the training shapes,
+# tests/test_ops.py's ragged shapes, and the kernel's edges: a q length off
+# the 192-row tile against 4096 keys, 150 q rows (one q tile, so the
+# cluster's other CTAs have no rows), kv below and across one 128-key tile,
+# q, k, v as strided views of one [B, S, 3, H, D] tensor, fp16 at UNet level 1
 RESIDENT_CHECKS = (("unet_level0", (32, 4096, 5, 64), 4096, torch.bfloat16, False),
                    ("unet_level1", (32, 1024, 10, 64), 1024, torch.bfloat16, False),
-                   ("train_level0", (16, 4096, 5, 64), 4096, torch.bfloat16, True),
-                   ("train_level1", (16, 1024, 10, 64), 1024, torch.bfloat16, True),
-                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.bfloat16, True),
-                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.float16, True),
-                   ("small_256", (2, 256, 2, 64), 256, torch.bfloat16, True))
+                   ("train_level0", (16, 4096, 5, 64), 4096, torch.bfloat16, False),
+                   ("train_level1", (16, 1024, 10, 64), 1024, torch.bfloat16, False),
+                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.bfloat16, False),
+                   ("ragged_300_513", (2, 300, 5, 64), 513, torch.float16, False),
+                   ("small_256", (2, 256, 2, 64), 256, torch.bfloat16, False),
+                   ("q_tail_200", (1, 200, 3, 64), 4096, torch.bfloat16, False),
+                   ("q_150_empty_cta", (2, 150, 3, 64), 1024, torch.bfloat16, False),
+                   ("kv_100", (2, 256, 3, 64), 100, torch.bfloat16, False),
+                   ("kv_300", (2, 256, 3, 64), 300, torch.bfloat16, False),
+                   ("fused_qkv", (2, 640, 4, 64), 640, torch.bfloat16, True),
+                   ("unet_level1_fp16", (32, 1024, 10, 64), 1024, torch.float16, False))
 RESIDENT_TIMED = ("unet_level0", "unet_level1")
+# the resident kernel's times per launch with its earlier design (mma.sync,
+# the K/V of a head held in a cluster's shared memory and staged through
+# registers), measured by this script on an H100 80GB HBM3 at 700 W
+EARLIER_RES_MS = {"unet_level0": 4.963, "unet_level1": 0.596}
 # further forward checks, (label, q shape, kv length, dtype, fused): the
 # d=512 instantiation in fp16, ragged sequences, and the d=64 kernel's edges:
 # a q length off its 192-row tile, kv below and across one 128-key tile,
@@ -140,13 +159,14 @@ EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.421,
 # show their design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG;
 # the backward stores from registers)
 SM90_SYMBOLS = {FWD_KERNEL: ("flash_fwd_sm90_kernel",),
+                RES_KERNEL: ("flash_resident_sm90_kernel",),
                 BWD_SOURCE: ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 # their registers per thread at launch, 65536 over their threads rounded
-# down to 8 (512 threads for the forward, 384 for the backward): the
+# down to 8 (512 threads for the forwards, 384 for the backward): the
 # consumers' setmaxnreg.inc (to 160, and to 240) waits for good on fewer
-SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_bwd_dkv_sm90_kernel": 168,
-                  "flash_bwd_dq_sm90_kernel": 168}
+SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_resident_sm90_kernel": 128,
+                  "flash_bwd_dkv_sm90_kernel": 168, "flash_bwd_dq_sm90_kernel": 168}
 # MUFU exponentials per clock per SM
 EXP_PER_CLOCK_PER_SM = 16
 # further backward checks: (label, q shape, kv length, dtype, fused): ragged
@@ -175,7 +195,7 @@ ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "t
               "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(sm90_)?kernel"),
-              ("flash_attention_resident", r"flash_resident_kernel"),
+              ("flash_attention_resident", r"flash_resident_sm90_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_sm90_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_sm90_kernel"),
               ("conv", r"conv|cudnn|fprop|dgrad|wgrad|implicit_convolve|winograd"),
@@ -304,7 +324,7 @@ def phase_build():
                                  f"(ptxas): {regs}")
             counts = _sass_counts(path, symbol)
             for func, ops in counts.items():
-                log(f"[build] {name} SASS {func[:100]}: "
+                log(f"[build] {name} SASS {func[:160]}: "
                     + ", ".join(f"{op} {n}" for op, n in ops.items()))
             if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
                 raise SystemExit(f"{symbol} lacks wgmma or TMA loads in its SASS: {counts}")
@@ -361,10 +381,10 @@ def _check(lbl, q, k, v) -> float:
     return err
 
 
-def _check_resident(lbl, q, k, v, with_lse) -> float:
+def _check_resident(lbl, q, k, v) -> float:
     """The resident kernel, with and without lse, against the plain version
-    and against the streamed kernel; returns the largest absolute error of
-    its output against the plain version."""
+    and against the streamed kernel; returns
+    the largest absolute error of its output against the plain version."""
     from stableanimator_tpu_torch.ops import flash_attention as fa
 
     ref_o, ref_lse = fa.flash_attention_reference(q, k, v, with_lse=True)
@@ -381,9 +401,9 @@ def _check_resident(lbl, q, k, v, with_lse) -> float:
     share_streamed = (vs_streamed / fa.kernel_tolerance(streamed)).max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ok = share <= 1.0 and share_streamed <= 1.0 and err_lse <= LSE_ATOL
-    log(f"[kernels] resident {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]} "
-        f"(cluster {fa.resident_cluster_size(k.shape[1])}, lse checked, path with_lse="
-        f"{with_lse}): max|o-ref| {err:.3e}, {share:.3f} of the bound; vs the streamed kernel "
+    log(f"[kernels] resident {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}"
+        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''} (lse "
+        f"checked): max|o-ref| {err:.3e}, {share:.3f} of the bound; vs the streamed kernel "
         f"max {vs_streamed.max().item():.3e}, {share_streamed:.3f} of its bound; max|lse-ref| "
         f"{err_lse:.3e} tol {LSE_ATOL} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -467,11 +487,12 @@ def _time_bwd(lbl, shape) -> dict:
 
 def phase_kernels():
     from stableanimator_tpu_torch.ops.flash_attention import (
+        RESIDENT_CLUSTER,
         flash_attention,
         flash_attention_reference,
+        flash_attention_resident,
+        resident_max_clusters,
     )
-
-    from stableanimator_tpu_torch.ops.flash_attention import flash_attention_resident
 
     max_err = {name: 0.0 for name in KERNELS}
     for lbl, shape, sk, dtype, fused in EXTRA_CHECKS:
@@ -481,9 +502,15 @@ def phase_kernels():
     exp_per_s, sms, mhz = _exp_rate()
     log(f"[kernels] exponentials' bound: B*H*Sq*Sk / ({EXP_PER_CLOCK_PER_SM} per clock x {sms} SMs "
         f"x {mhz:.0f} MHz max SM clock) = {exp_per_s / 1e12:.3f} T/s")
-    for lbl, shape, sk, dtype, with_lse in RESIDENT_CHECKS:
+    n = resident_max_clusters()
+    log(f"[kernels] resident kernel in clusters of {RESIDENT_CLUSTER}: {n} run at once "
+        f"(cudaOccupancyMaxActiveClusters), {n * RESIDENT_CLUSTER} CTAs, one per SM, on {sms} SMs")
+    if not 1 <= n * RESIDENT_CLUSTER <= sms:
+        raise SystemExit(f"the resident kernel's clusters do not fit the card at one CTA per SM: "
+                         f"{n} clusters of {RESIDENT_CLUSTER}")
+    for lbl, shape, sk, dtype, fused in RESIDENT_CHECKS:
         max_err[RES_KERNEL] = max(max_err[RES_KERNEL], _check_resident(
-            lbl, *_qkv(shape, dtype, seed=len(lbl) + 1, sk=sk), with_lse))
+            lbl, *_qkv(shape, dtype, seed=len(lbl) + 1, sk=sk, fused=fused)))
         torch.cuda.empty_cache()
 
     rows = {name: [] for name in KERNELS}
@@ -514,9 +541,11 @@ def phase_kernels():
             res_ms = cuda_ms(lambda: flash_attention_resident(q, k, v), iters=20)
             rows[RES_KERNEL].append((lbl, dict(row, ms=res_ms, streamed_ms=ms,
                                                tflops=flops / res_ms / 1e9)))
-            log(f"[kernels] {RES_KERNEL} {lbl} {tuple(shape)} bf16: kernel {res_ms:.3f} ms "
-                f"({flops / res_ms / 1e9:.0f} TFLOP/s), streamed kernel {ms:.3f} ms, bound "
-                f"{bound_ms:.3f} ms ({bound_by}), plain {plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
+            log(f"[kernels] {RES_KERNEL} {lbl} {tuple(shape)} bf16: kernel {res_ms:.3f} ms in "
+                f"clusters of {RESIDENT_CLUSTER} ({flops / res_ms / 1e9:.0f} TFLOP/s; "
+                f"earlier design {EARLIER_RES_MS[lbl]:.3f} ms), streamed kernel {ms:.3f} ms, "
+                f"bound {bound_ms:.3f} ms ({bound_by}), exponentials' bound {exp_ms:.3f} ms, plain "
+                f"{plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -784,9 +813,12 @@ def _write_longvideo_inputs(root: str, n_frames: int, hw: int):
     return os.path.join(root, "reference.png"), poses
 
 
-def phase_longvideo(steps: int):
+def _longvideo_request(steps: int, budget: int):
     """`cli.animate.main` at full width on a 64-frame 512x512 request with the
-    resident budget at 4 MiB; counts and outputs asserted."""
+    resident budget at `budget` bytes; counts and outputs asserted: at 4 MiB
+    every UNet attention takes the resident kernel and the VAE's d = 512
+    ones are refused to the streamed kernel, at 0 all take the streamed
+    kernel."""
     import numpy as np
     from PIL import Image
 
@@ -803,7 +835,7 @@ def phase_longvideo(steps: int):
                 "--device", "cuda"]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with _resident_budget(RESIDENT_BUDGET):
+        with _resident_budget(budget):
             reset_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(_Tee()) as printed:
@@ -820,10 +852,13 @@ def phase_longvideo(steps: int):
             gif_frames = gif.n_frames
         mp4_bytes = os.path.getsize(os.path.join(out, "animation_video.mp4"))
     sec = info["seconds"]
-    res_expected = 10 * LONGVIDEO_TILES * steps
+    unet = 10 * LONGVIDEO_TILES * steps          # UNet attentions at levels 0 and 1
+    want = ({RES_KERNEL: unet, FWD_KERNEL: LONGVIDEO_DECODE_GROUPS,
+             "refused": LONGVIDEO_DECODE_GROUPS} if budget
+            else {RES_KERNEL: 0, FWD_KERNEL: unet + LONGVIDEO_DECODE_GROUPS, "refused": 0})
     got = {k: counts["by_kernel"][k] for k in KERNELS}
-    log(f"[longvideo] cli {LONGVIDEO_FRAMES} frames {hw}x{hw}, {steps} steps: request "
-        f"{sec:.2f} s, {LONGVIDEO_FRAMES / sec:.3f} frames/s; phases "
+    log(f"[longvideo] cli {LONGVIDEO_FRAMES} frames {hw}x{hw}, {steps} steps, resident budget "
+        f"{budget} B: request {sec:.2f} s, {LONGVIDEO_FRAMES / sec:.3f} frames/s; phases "
         + ", ".join(f"{k} {v:.2f} s" for k, v in info["phases"].items())
         + f"; main() {wall:.1f} s in all (model build, pose PNGs, outputs); peak "
         f"{peak_gb:.1f} GiB; warm {info['warm']}; launches {got}, refused {counts['refused']} "
@@ -838,15 +873,28 @@ def phase_longvideo(steps: int):
         "frames not constant": frames.std() > 1.0
         and frames.astype(np.float32).std(axis=0).mean() > 0.0,
         "one progress line per 5-step segment": len(progress) == -(-steps // 5),
-        f"{res_expected} resident launches": got[RES_KERNEL] == res_expected,
-        f"{LONGVIDEO_DECODE_GROUPS} streamed launches": got[FWD_KERNEL] == LONGVIDEO_DECODE_GROUPS,
-        f"{LONGVIDEO_DECODE_GROUPS} refused": counts["refused"] == LONGVIDEO_DECODE_GROUPS,
+        f"{want[RES_KERNEL]} resident launches": got[RES_KERNEL] == want[RES_KERNEL],
+        f"{want[FWD_KERNEL]} streamed launches": got[FWD_KERNEL] == want[FWD_KERNEL],
+        f"{want['refused']} refused": counts["refused"] == want["refused"],
         "no backward launches": got[DKV_KERNEL] == got[DQ_KERNEL] == 0,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"the 64-frame CLI request failed its checks: {failed}")
+        raise SystemExit(f"the 64-frame CLI request at budget {budget} failed its checks: {failed}")
     return dict(seconds=sec, wall=wall, phases=info["phases"], peak_gib=peak_gb, **counts)
+
+
+def phase_longvideo(steps: int):
+    """The 64-frame CLI request on the resident route (budget 4 MiB), then on
+    the streamed route (budget 0); returns the first, with the second under
+    "streamed"."""
+    resident = _longvideo_request(steps, RESIDENT_BUDGET)
+    torch.cuda.empty_cache()
+    streamed = _longvideo_request(steps, 0)
+    log(f"[longvideo] 64-frame request: resident route (budget {RESIDENT_BUDGET}) "
+        f"{resident['seconds']:.3f} s, streamed route (budget 0) {streamed['seconds']:.3f} s, "
+        f"resident / streamed {resident['seconds'] / streamed['seconds']:.4f}")
+    return dict(resident, streamed=streamed)
 
 
 def phase_train():

@@ -1,8 +1,9 @@
-// PTX wrappers for Hopper (sm_90a) shared by the port's CUDA sources:
-// mbarriers, TMA tensor loads and stores and 1-D bulk copies, warpgroup
-// matrix multiply (wgmma) with its shared-memory descriptors, named barriers
-// and setmaxnreg; and, on the host, the TMA tensor maps over [B, S, H, 64]
-// tensors.
+// PTX wrappers for Hopper (sm_90a) shared by the port's CUDA sources, after
+// the conversions between fp32 and the 16-bit input types: mbarriers (local, and arrivals on a peer CTA's), TMA tensor loads (local,
+// and multicast into the CTAs of a cluster) and stores and 1-D bulk copies,
+// the cluster's rank and barrier, warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors, named barriers and setmaxnreg; and, on the
+// host, the TMA tensor maps over [B, S, H, 64] tensors.
 //
 // Operand layouts follow the PTX ISA: a tile that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B (rows of 128 bytes, the 16-byte chunk c of row
@@ -29,6 +30,32 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// conversions between fp32 and the 16-bit input type T: one value each way,
+// and two fp32 values rounded and packed into one 32-bit register (lo in the
+// low half)
+template <typename T>
+struct Cvt;
+
+template <>
+struct Cvt<__nv_bfloat16> {
+  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Cvt<__half> {
+  static __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // mbarriers
 // ---------------------------------------------------------------------------
@@ -54,6 +81,20 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// one arrival on the barrier at `bar`'s offset in the shared memory of the
+// cluster's CTA `cta` (this CTA's own included). Its release is at CTA scope,
+// as CUTLASS's ClusterBarrier::arrive: to hand a stage back to a peer's
+// producer, the reads it follows must have completed (wgmma.wait_group).
+// A release at cluster scope makes every arrival a cluster-wide fence, which
+// slowed the resident kernel markedly on the H100 (PERF.md section 6).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
 // waits for the completion of the barrier's phase of parity `parity`
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -67,6 +108,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+// this CTA's rank in its cluster, 0 .. cluster size - 1
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// the two halves of a barrier over every thread of every CTA of the cluster
+// (not .aligned: the threads of a warp need not arrive together). A thread
+// arrives once, may work on, and waits before it arrives again; the wait
+// returns when every thread of the cluster has arrived. The arrival releases
+// and the wait acquires at cluster scope, so what a thread wrote to shared
+// memory or initialised before its arrival is visible cluster-wide after
+// the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -86,6 +153,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// tma_load_4d into every CTA of the cluster whose rank is set in `cta_mask`:
+// the box lands at `dst`'s offset in each one's shared memory and completes
+// its bytes on the barrier at `bar`'s offset there
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, uint16_t cta_mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar)), "h"(cta_mask)
       : "memory");
 }
 

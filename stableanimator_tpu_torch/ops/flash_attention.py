@@ -23,21 +23,22 @@ consumers); they read lse and delta as [B, H, Sq padded to 64]
 
 Resident forward: `csrc/flash_attention_resident.cu` replaces
 `_fwd_kernel_resident` (driven there by `_flash_fwd_resident`): the same
-function and rounding as the streamed forward, with the K and V of one
-(batch, head) read from device memory once into the shared memory of a
-thread-block cluster and reused by every q tile. Head dim 64 only.
-`_flash_forward` routes a call to it when two tests pass:
+function and rounding as the streamed forward, with each K/V tile of one
+(batch, head) fetched once for a thread-block cluster of 2 CTAs
+(`RESIDENT_CLUSTER`), which take consecutive q tiles of that head, and
+multicast by TMA into
+the shared memory of each (the streamed kernel fetches it once per CTA).
+The CTA program is the streamed d = 64 kernel's (`csrc/flash_fwd_d64.cuh`).
+Head dim 64 only, any number of keys. `_flash_forward` routes a call to it
+when two tests pass:
   (a) the JAX package's test, unchanged (`_use_resident`): one head step's
       padded K columns, kv_pad * heads_per_step * d * itemsize, fit the
       budget `SA_TPU_RESIDENT_KV_MAX_BYTES` (default 0, so off), read at
       call time so that one process can run both routes;
-  (b) the card's capacity: d is 64 and the K and V of one head, padded to
-      64-row chunks, fit one cluster of at most 8 CTAs at 128 KiB each
-      (the kernel stores 16-bit values: Sk <= 4096).
+  (b) the kernel takes the call: d is 64.
 A call that passes (a) and not (b) goes to the streamed kernel and is
 counted in `flash_attention_resident.refused`; this is a routing rule (the
-VAE decoder's 512-wide head, 8 MiB of K and V, fits no cluster), not a
-fallback from a failure.
+VAE decoder's 512-wide head), not a fallback from a failure.
 
 `flash_attention` is differentiable: when autograd needs its gradient it
 goes through `FlashAttentionFunction`, whose forward keeps the lse and whose
@@ -72,14 +73,11 @@ BWD_HEAD_DIMS = (64,)
 # the backward kernels' streamed tiles: q rows (dK/dV) and kv rows (dQ); lse
 # and delta are padded to a whole number of them
 BWD_TILE = 64
-# the resident forward: kv in 64-row chunks, at most 8 chunks (128 KiB of K
-# and V at 16 bits) per CTA, at most 8 CTAs (the portable cluster size) per
-# (batch, head)
+# the resident forward, and its CTAs per cluster (each K/V tile is fetched
+# once for them; the kernel's compile-time CLUSTER)
 RESIDENT_KERNEL = "flash_attention_resident"
 RESIDENT_HEAD_DIMS = (64,)
-RESIDENT_CHUNK = 64
-RESIDENT_CHUNKS_PER_CTA = 8
-RESIDENT_MAX_CLUSTER = 8
+RESIDENT_CLUSTER = 2
 RESIDENT_BUDGET_ENV = "SA_TPU_RESIDENT_KV_MAX_BYTES"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 
@@ -202,15 +200,28 @@ def _bwd_kernels() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_kernel():
-    """Build (first use only) and bind the resident forward's C entry point:
-    the streamed one's arguments with the cluster size after d."""
+def _resident_lib():
+    """Build (first use only) and bind the resident forward's C entry points:
+    the kernel (the streamed one's arguments) and its occupancy query
+    (int* count)."""
     lib = ctypes.CDLL(str(build.build_kernel(RESIDENT_KERNEL)))
-    fn = lib.sa_flash_attention_resident
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib.sa_flash_attention_resident.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.sa_flash_attention_resident_max_clusters.argtypes = [ctypes.c_void_p]
+    for fn in (lib.sa_flash_attention_resident, lib.sa_flash_attention_resident_max_clusters):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def resident_max_clusters() -> int:
+    """How many clusters of `RESIDENT_CLUSTER` resident-kernel CTAs the card
+    runs at once (`cudaOccupancyMaxActiveClusters`; each CTA takes one SM)."""
+    count = ctypes.c_int(0)
+    err = _resident_lib().sa_flash_attention_resident_max_clusters(ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"{RESIDENT_KERNEL} occupancy query failed: cudaError {err}")
+    return count.value
 
 
 # ---------------------------------------------------------------------------
@@ -260,22 +271,10 @@ def passes_resident_budget(q_shape, k_shape, itemsize: int, budget: int | None =
     return kv_pad * heads_per_step * d * itemsize <= budget
 
 
-def resident_cluster_size(sk: int) -> int | None:
-    """CTAs per (batch, head) for `sk` keys: the fewest (1, 2, 4 or 8) whose
-    128 KiB shares hold K and V; None when 8 do not."""
-    n_chunks = -(-sk // RESIDENT_CHUNK)
-    c = 1
-    while c <= RESIDENT_MAX_CLUSTER:
-        if -(-n_chunks // c) <= RESIDENT_CHUNKS_PER_CTA:
-            return c
-        c *= 2
-    return None
-
-
-def fits_resident_cluster(q_shape, k_shape) -> bool:
-    """Test (b), the card's capacity: d is 64 and one head's K and V, at the
-    kernel's 16 bits and padded to 64-row chunks, fit one cluster."""
-    return q_shape[-1] in RESIDENT_HEAD_DIMS and resident_cluster_size(k_shape[1]) is not None
+def resident_kernel_takes(q_shape) -> bool:
+    """Test (b): the resident kernel takes the call, d being 64 (it streams
+    K and V through its ring, so any number of keys)."""
+    return q_shape[-1] in RESIDENT_HEAD_DIMS
 
 
 def resident_route(q_shape, k_shape, itemsize: int, budget: int | None = None) -> str:
@@ -284,7 +283,7 @@ def resident_route(q_shape, k_shape, itemsize: int, budget: int | None = None) -
     "streamed"."""
     if not passes_resident_budget(q_shape, k_shape, itemsize, budget):
         return "streamed"
-    return "resident" if fits_resident_cluster(q_shape, k_shape) else "refused"
+    return "resident" if resident_kernel_takes(q_shape) else "refused"
 
 
 def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -355,37 +354,36 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
 
 
 def flash_attention_resident(q, k, v, scale: float | None = None, with_lse: bool = False):
-    """The resident-K/V forward: the streamed forward's function, with K and
-    V of each (batch, head) read once into a cluster's shared memory.
+    """The resident-K/V forward: the streamed forward's function, with each
+    K/V tile of a (batch, head) fetched once for a cluster of
+    `RESIDENT_CLUSTER` CTAs and multicast into each.
 
     A CUDA tensor goes to the kernel (launched on the current stream without
-    synchronising); a shape it does not take (d other than 64, more than
-    4096 keys) raises. A CPU tensor gets the plain version,
-    `flash_attention_reference`."""
+    synchronising); a head dim other than 64 raises, and so does a cluster
+    launch the driver refuses. A CPU tensor gets the
+    plain version, `flash_attention_reference`."""
     scale = _default_scale(q, scale)
     if _device_of(q, "flash_attention_resident") == "cpu":
         return flash_attention_reference(q, k, v, scale, with_lse)
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    cluster = resident_cluster_size(sk)
-    if d not in RESIDENT_HEAD_DIMS or cluster is None:
-        raise ValueError(f"the resident kernel takes head dims {RESIDENT_HEAD_DIMS} and at most "
-                         f"{RESIDENT_MAX_CLUSTER * RESIDENT_CHUNKS_PER_CTA * RESIDENT_CHUNK} keys, "
-                         f"got q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not resident_kernel_takes(q.shape):
+        raise ValueError(f"the resident kernel takes head dims {RESIDENT_HEAD_DIMS}, got q "
+                         f"{tuple(q.shape)}")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _resident_kernel()(
+    err = _resident_lib().sa_flash_attention_resident(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        _DTYPE_CODES[q.dtype], b, sq, sk, h, d, cluster,
+        _DTYPE_CODES[q.dtype], b, sq, sk, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{RESIDENT_KERNEL} launch failed: cudaError {err} "
-                           f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, cluster {cluster})")
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     flash_attention_resident.launches += 1
     flash_attention_resident.launches_by_shape[(b, sq, sk, h, d)] += 1
     return (o, lse) if with_lse else o
@@ -395,18 +393,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float | None = None):
     """Gradients (dq, dk, dv) of flash attention, from the forward's inputs,
     its output o and lse, and the output gradient dO.
 
-    CUDA tensors go to the two Hopper kernels (dK/dV, then dQ), launched on
-    the current stream without synchronising; CPU tensors to the plain
-    version. Head dim 64 only, on every device."""
+    CPU tensors get the plain version at any head dim. CUDA tensors go to
+    the two Hopper kernels (dK/dV, then dQ), launched on the current stream
+    without synchronising; they take head dim 64 only, and another raises
+    NotImplementedError."""
     scale = _default_scale(q, scale)
+    if _device_of(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
     d = q.shape[-1]
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash-attention backward for head dim {d}: the kernels take {BWD_HEAD_DIMS}. "
-            "The d = 512 backward (the VAE decoder's mid attention, which face "
-            "optimisation backpropagates through) comes with ROADMAP queue 1 item 9")
-    if _device_of(q, "flash_attention_bwd") == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+            f"flash-attention backward on the card for head dim {d}: the kernels take "
+            f"{BWD_HEAD_DIMS}; the d = 512 backward kernel (the VAE decoder's mid attention) "
+            "is not written yet")
     grads, launch = bwd_launchers(q, k, v, o, lse, do, scale)
     for name in (DKV_KERNEL, DQ_KERNEL):
         launch[name]()

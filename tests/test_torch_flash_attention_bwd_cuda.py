@@ -101,3 +101,15 @@ def test_cuda_flash_attention_output_carries_its_gradient():
     plain = torch.autograd.grad(plain_attention(*qkv32), qkv32, do.float())
     for g, w in zip(got, plain):
         assert (g.float() - w).abs().max().item() <= 0.05 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_backward_refuses_head_dim_512():
+    # the kernels take d = 64; on the card another head dim raises, naming no
+    # queue item (on the CPU the plain backward takes every head dim)
+    _card()
+    q, k, v, do = _inputs((1, 1024, 1, 512), 1024, torch.bfloat16, seed=3)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    with pytest.raises(NotImplementedError, match="head dim 512") as raised:
+        fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert "item" not in str(raised.value)

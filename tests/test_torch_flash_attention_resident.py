@@ -2,8 +2,9 @@
 
   (a) the routing: the port's budget test against the JAX package's
       `_use_resident` at budgets 0 and 4 MiB, on the three shapes of the
-      64-frame request and the ragged ones of tests/test_ops.py; the card's
-      capacity test on the same shapes (the VAE's 512-wide head is refused);
+      64-frame request and the ragged ones of tests/test_ops.py; the
+      kernel's own test on the same shapes (d = 64 at any number of keys;
+      the VAE's 512-wide head is refused);
   (b) the resident wrapper's CPU output and lse against the JAX package's
       `_flash_fwd_resident` (the Pallas kernel in interpret mode) at the
       shapes of tests/test_ops.py::TestFlashKernelVariants.
@@ -31,8 +32,9 @@ SHAPES = [("unet_level0", (32, 4096, 5, 64), 4096),
           ("vae_mid", (16, 4096, 1, 512), 4096),
           ("ragged", (2, 300, 5, 64), 513),
           ("small", (2, 256, 2, 64), 256)]
-# test (b) on those shapes: whether a cluster holds K and V, and its size
-CAPACITY = {"unet_level0": 8, "unet_level1": 2, "vae_mid": None, "ragged": 2, "small": 1}
+# test (b) on those shapes: whether the resident kernel takes the call
+TAKES = {"unet_level0": True, "unet_level1": True, "vae_mid": False, "ragged": True,
+         "small": True}
 # with the 4 MiB budget, the route of each call
 ROUTE_4MIB = {"unet_level0": "resident", "unet_level1": "resident", "vae_mid": "refused",
               "ragged": "resident", "small": "resident"}
@@ -66,23 +68,21 @@ def test_budget_test_matches_jax(monkeypatch, label, q_shape, sk, budget):
 @pytest.mark.parametrize("label,q_shape,sk", SHAPES)
 def test_capacity_test(label, q_shape, sk):
     k_shape = _k_shape(q_shape, sk)
-    assert fa.fits_resident_cluster(q_shape, k_shape) == (CAPACITY[label] is not None)
-    if q_shape[-1] == 64:
-        assert fa.resident_cluster_size(sk) == CAPACITY[label]
+    assert fa.resident_kernel_takes(q_shape) == TAKES[label]
     assert fa.resident_route(q_shape, k_shape, 2, MIB4) == ROUTE_4MIB[label]
     assert fa.resident_route(q_shape, k_shape, 2, 0) == "streamed"
 
 
 def test_capacity_limits():
-    # 64 chunks of 64 keys fill 8 CTAs of 8 chunks; one more key needs a 9th
-    assert fa.resident_cluster_size(4096) == 8
-    assert fa.resident_cluster_size(4097) is None
-    assert [fa.resident_cluster_size(s) for s in (1, 512, 513, 1024, 2048, 2049)] == \
-        [1, 1, 2, 2, 4, 8]
-    assert not fa.fits_resident_cluster((1, 4096, 1, 128), (1, 4096, 1, 128))
-    # the 576x1024 level-0 attention (9216 keys) passes a 4 MiB budget in
-    # JAX's test and fits no cluster
-    assert fa.resident_route((32, 9216, 5, 64), (32, 9216, 5, 64), 2, 8 * MIB4) == "refused"
+    # the kernel streams K and V through its ring: no key count is too many,
+    # no head dim but 64 is taken
+    for sk in (1, 512, 513, 1024, 2048, 2049, 4096, 4097, 9216):
+        assert fa.resident_route((2, 256, 5, 64), (2, sk, 5, 64), 2, 8 * MIB4) == "resident", sk
+    for d in (32, 128, 512):
+        assert not fa.resident_kernel_takes((1, 4096, 1, d))
+    # the 576x1024 level-0 attention (9216 keys) passes an 8 x 4 MiB budget in
+    # JAX's test and takes the resident kernel
+    assert fa.resident_route((32, 9216, 5, 64), (32, 9216, 5, 64), 2, 8 * MIB4) == "resident"
 
 
 # fp32: summation order only (tests/test_ops.py allows 2e-4 between the
