@@ -7,20 +7,24 @@ the card.
     python3 chip_smoke.py --phases device,build,kernels   # kernel bring-up only
 
 Phases, in order (any failure exits nonzero; no phase's exception is caught):
-  device   card name and power limit (nvidia-smi); TF32 stated and set off
+  device   card name and power limit (nvidia-smi); TF32 stated and set off;
+           the L2 read rate (one sum over 32 reads of a 16 MB tensor, which L2
+           holds)
   build    builds the flash-attention kernels (streamed forward, resident
            forward, backward) from csrc/ with nvcc, one process per source,
            in parallel; prints the ptxas report and, from cuobjdump -sass,
            the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
-           d = 64 forward, the resident forward and both backward kernels:
-           fails on a spill in any of the three libraries, if one of those
-           four kernels uses other than its launch-bound register count
-           (setmaxnreg needs it), or if HGMMA or UTMALDG is missing from one
-           of their instantiations
-  kernels  the streamed forward kernel against its plain PyTorch version,
+           d = 64 and d = 512 forwards, the resident forward and both
+           backward kernels: fails on a spill in any of the three libraries,
+           if one of those five kernels uses other than its launch-bound
+           register count (setmaxnreg needs it), if HGMMA or UTMALDG is
+           missing from one of their instantiations, or if the forward's
+           library still holds the mma.sync kernel (flash_fwd_kernel)
+  kernels  the streamed forward kernels against their plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
-           at ragged and fp16 shapes, with the d = 64 kernel's edges (q and
-           kv tails, strided views of a fused QKV tensor); the resident
+           at ragged and fp16 shapes, with the d = 64 and d = 512 kernels'
+           edges (q and kv tails, strided views of a fused QKV tensor, at
+           d = 512 one q tile of 50 rows and two heads); the resident
            forward kernel, in clusters of 2 CTAs (how many fit the card at
            once printed and checked), against the plain version (lse too) and
            against the streamed kernel at the UNet's generate and training
@@ -33,9 +37,11 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            plain version and the PyTorch library call (the resident one
            beside the streamed one too); the forwards'
            rows also beside their earlier design's time and, at d = 64, the
-           exponentials' bound; the backward's beside their earlier design's
-           times and the bound of the products they issue (P and dS split
-           in two)
+           exponentials' bound, at d = 512 (in the log only) the bound of
+           the products it issues and the time of its bytes out of L2 at the
+           probe's rate; the
+           backward's beside their earlier design's times and the bound of
+           the products they issue (P and dS split in two)
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
@@ -138,9 +144,12 @@ RESIDENT_TIMED = ("unet_level0", "unet_level1")
 # registers), measured by this script on an H100 80GB HBM3 at 700 W
 EARLIER_RES_MS = {"unet_level0": 4.963, "unet_level1": 0.596}
 # further forward checks, (label, q shape, kv length, dtype, fused): the
-# d=512 instantiation in fp16, ragged sequences, and the d=64 kernel's edges:
-# a q length off its 192-row tile, kv below and across one 128-key tile,
-# q, k, v as strided views of one [B, S, 3, H, D] tensor, fp16 at UNet level 1
+# d=512 kernel in fp16, ragged sequences, the d=64 kernel's edges (a q length
+# off its 192-row tile, kv below and across one 128-key tile, q, k, v as
+# strided views of one [B, S, 3, H, D] tensor, fp16 at UNet level 1) and the
+# d = 512 kernel's: a q length off its 64-row tile against 4096 keys, 50 q
+# rows (a single q tile with fewer than 64 rows), kv below, across and past a
+# whole number of 32-key tiles, two heads, fused QKV views
 EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
                 ("ragged_576", (2, 576, 20, 64), 576, torch.bfloat16, False),
                 ("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
@@ -149,24 +158,39 @@ EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
                 ("kv_100", (2, 256, 3, 64), 100, torch.bfloat16, False),
                 ("kv_300", (2, 256, 3, 64), 300, torch.bfloat16, False),
                 ("fused_qkv", (2, 640, 4, 64), 640, torch.bfloat16, True),
-                ("unet_level1_fp16", (32, 1024, 10, 64), 1024, torch.float16, False))
-# the streamed forward's times per launch with its earlier design (mma.sync
-# at both head dims, before the d = 64 wgmma / TMA kernel), measured by this
-# script on an H100 80GB HBM3 at 700 W; printed beside this run's
-EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.421,
-              "train_level0": 3.449, "train_level1": 0.467}
+                ("unet_level1_fp16", (32, 1024, 10, 64), 1024, torch.float16, False),
+                ("d512_q_tail_200", (1, 200, 1, 512), 4096, torch.bfloat16, False),
+                ("d512_q_50", (1, 50, 1, 512), 1024, torch.bfloat16, False),
+                ("d512_kv_100", (2, 256, 1, 512), 100, torch.bfloat16, False),
+                ("d512_kv_300", (2, 256, 1, 512), 300, torch.bfloat16, False),
+                ("d512_kv_4100", (2, 256, 1, 512), 4100, torch.bfloat16, False),
+                ("d512_h2", (2, 512, 2, 512), 512, torch.bfloat16, False),
+                ("d512_fused_qkv", (2, 640, 1, 512), 640, torch.bfloat16, True))
+# the streamed forward's times per launch with its earlier design (mma.sync,
+# before the wgmma / TMA kernels at both head dims), measured by this script
+# on an H100 80GB HBM3 at 700 W; printed beside this run's
+EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.413,
+                  "train_level0": 3.449, "train_level1": 0.467}
 # the Hopper kernels' symbols by library, and the SASS instructions that
 # show their design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG;
 # the backward stores from registers)
-SM90_SYMBOLS = {FWD_KERNEL: ("flash_fwd_sm90_kernel",),
+SM90_SYMBOLS = {FWD_KERNEL: ("flash_fwd_sm90_kernel", "flash_fwd_d512_sm90_kernel"),
                 RES_KERNEL: ("flash_resident_sm90_kernel",),
                 BWD_SOURCE: ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 # their registers per thread at launch, 65536 over their threads rounded
-# down to 8 (512 threads for the forwards, 384 for the backward): the
-# consumers' setmaxnreg.inc (to 160, and to 240) waits for good on fewer
+# down to 8 (512 threads for the d = 64 forwards, 384 for the d = 512 forward
+# and the backward): the consumers' setmaxnreg.inc (to 160, and to 240)
+# waits for good on fewer
 SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_resident_sm90_kernel": 128,
+                  "flash_fwd_d512_sm90_kernel": 168,
                   "flash_bwd_dkv_sm90_kernel": 168, "flash_bwd_dq_sm90_kernel": 168}
+# the mma.sync forward that the d = 512 Hopper kernel replaced: the forward's
+# library must no longer hold it
+RETIRED_SYMBOL = "flash_fwd_kernel"
+# the L2 read rate: one sum that reads an fp32 tensor of L2_PROBE_BYTES,
+# which the 50 MB L2 holds, L2_PROBE_REPEATS times over (a stride-0 view)
+L2_PROBE_BYTES, L2_PROBE_REPEATS = 16 * 2**20, 32
 # MUFU exponentials per clock per SM
 EXP_PER_CLOCK_PER_SM = 16
 # further backward checks: (label, q shape, kv length, dtype, fused): ragged
@@ -194,7 +218,7 @@ ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
 ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "train",
               "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
-CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(sm90_)?kernel"),
+CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_sm90_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_sm90_kernel"),
@@ -268,6 +292,21 @@ def phase_device():
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
     log(f"[device] bounds reckoned at H100 SXM peaks: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
         f"{PEAK_BYTES / 1e12:.2f} TB/s")
+    return l2_read_rate()
+
+
+def l2_read_rate() -> float:
+    """Bytes per second that the card reads out of L2: the CUDA-event time of
+    one sum of each of L2_PROBE_REPEATS rows, each row a stride-0 view of the
+    same fp32 tensor of L2_PROBE_BYTES, which stays in the 50 MB L2; a lower
+    estimate, since a reduction is not a pure read."""
+    x = torch.ones(L2_PROBE_BYTES // 4, device="cuda")
+    rows = x.expand(L2_PROBE_REPEATS, x.numel())
+    sec = cuda_ms(lambda: rows.sum(1), iters=30, warmup=3) / 1e3
+    rate = L2_PROBE_REPEATS * L2_PROBE_BYTES / sec
+    log(f"[device] L2 read rate: {rate / 1e12:.3f} TB/s ({L2_PROBE_REPEATS} reads of a "
+        f"{L2_PROBE_BYTES >> 20} MB fp32 tensor by one sum)")
+    return rate
 
 
 def _registers(report: str, symbol: str) -> dict:
@@ -328,6 +367,11 @@ def phase_build():
                     + ", ".join(f"{op} {n}" for op, n in ops.items()))
             if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
                 raise SystemExit(f"{symbol} lacks wgmma or TMA loads in its SASS: {counts}")
+    retired = _sass_counts(paths[FWD_KERNEL], RETIRED_SYMBOL)
+    log(f"[build] {FWD_KERNEL}: {len(retired)} instantiations of {RETIRED_SYMBOL} (the mma.sync "
+        "kernel) in the library")
+    if retired:
+        raise SystemExit(f"{FWD_KERNEL} still holds {RETIRED_SYMBOL}: {sorted(retired)}")
 
 
 def _qkv(shape, dtype, seed, sk=None, fused=False):
@@ -485,7 +529,7 @@ def _time_bwd(lbl, shape) -> dict:
     return rows
 
 
-def phase_kernels():
+def phase_kernels(l2_rate: float):
     from stableanimator_tpu_torch.ops.flash_attention import (
         RESIDENT_CLUSTER,
         flash_attention,
@@ -527,15 +571,25 @@ def phase_kernels():
         flops = 4.0 * b * h * s * s * d
         nbytes = 4.0 * b * s * h * d * 2 + (4.0 * b * s * h if with_lse else 0.0)
         bound_ms, bound_by = _bound(flops, nbytes)
-        exp_ms = b * h * s * s / exp_per_s * 1e3 if d == 64 else None
         row = dict(shape=list(shape), with_lse=with_lse, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / ms / 1e9)
+        if d == 64:
+            second = f", exponentials' bound {b * h * s * s / exp_per_s * 1e3:.3f} ms"
+        else:
+            # the products it issues are the function's own (the reduction
+            # split, not repeated), so their bound is the bound; out of L2 it
+            # reads every K and V tile once per 64-row q tile, and q and o
+            # once: an estimate at the probe's rate (a lower estimate of it),
+            # kept to the log
+            l2_bytes = 2.0 * 2 * b * h * -(-s // 64) * s * d + nbytes / 2
+            second = (f", issued-product bound {flops / PEAK_FLOPS * 1e3:.3f} ms (= the bound), "
+                      f"L2-bytes estimate {l2_bytes / l2_rate * 1e3:.3f} ms "
+                      f"({l2_bytes / 1e9:.2f} GB at the probe's {l2_rate / 1e12:.3f} TB/s)")
         log(f"[kernels] {FWD_KERNEL} {lbl} {tuple(shape)} bf16 lse={with_lse}: kernel {ms:.3f} "
             f"ms ({row['tflops']:.0f} TFLOP/s; earlier design {EARLIER_FWD_MS[lbl]:.3f} ms), bound "
-            f"{bound_ms:.3f} ms ({bound_by})"
-            + (f", exponentials' bound {exp_ms:.3f} ms" if exp_ms is not None else "")
-            + f", plain {plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
+            f"{bound_ms:.3f} ms ({bound_by}){second}, plain {plain_ms:.2f} ms, sdpa "
+            f"{lib_ms:.3f} ms")
         rows[FWD_KERNEL].append((lbl, row))
         if lbl in RESIDENT_TIMED:
             res_ms = cuda_ms(lambda: flash_attention_resident(q, k, v), iters=20)
@@ -544,8 +598,8 @@ def phase_kernels():
             log(f"[kernels] {RES_KERNEL} {lbl} {tuple(shape)} bf16: kernel {res_ms:.3f} ms in "
                 f"clusters of {RESIDENT_CLUSTER} ({flops / res_ms / 1e9:.0f} TFLOP/s; "
                 f"earlier design {EARLIER_RES_MS[lbl]:.3f} ms), streamed kernel {ms:.3f} ms, "
-                f"bound {bound_ms:.3f} ms ({bound_by}), exponentials' bound {exp_ms:.3f} ms, plain "
-                f"{plain_ms:.2f} ms, sdpa {lib_ms:.3f} ms")
+                f"bound {bound_ms:.3f} ms ({bound_by}){second}, plain {plain_ms:.2f} ms, sdpa "
+                f"{lib_ms:.3f} ms")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -1020,9 +1074,13 @@ def train_cli():
             raise SystemExit(f"the CLI's resume did not continue from step 2: {saved}")
 
 
-def _profile(label: str, fn):
-    import re
+def category(kernel_name: str) -> str:
+    """The profile's category of a device kernel: the first of CATEGORIES
+    whose pattern its name matches, else "other"."""
+    return next((c for c, pat in CATEGORIES if re.search(pat, kernel_name, re.I)), "other")
 
+
+def _profile(label: str, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1045,7 +1103,7 @@ def _profile(label: str, fn):
         return
     cats: dict = {}
     for sec, _, name in rows:
-        cat = next((c for c, pat in CATEGORIES if re.search(pat, name, re.I)), "other")
+        cat = category(name)
         cats[cat] = cats.get(cat, 0.0) + sec
     log(f"[profile] {label}: device time by category: " + ", ".join(
         f"{c} {v:.3f} s ({v / busy:.1%})" for c, v in sorted(cats.items(), key=lambda x: -x[1])))
@@ -1131,13 +1189,14 @@ def main() -> int:
     # train run the default route
     os.environ.pop(RESIDENT_BUDGET_ENV, None)
     t_start = time.perf_counter()
+    l2_rate = None
     if "device" in phases:
-        phase_device()
+        l2_rate = phase_device()
     if "build" in phases:
         phase_build()
     gen = longvideo = train = None
     if "kernels" in phases:
-        max_err, rows = phase_kernels()
+        max_err, rows = phase_kernels(l2_rate or l2_read_rate())
     if "small" in phases:
         phase_small()
     if "generate" in phases:

@@ -81,6 +81,9 @@
 
 namespace {
 
+using sm90::ex2;
+using sm90::LOG2E;
+
 constexpr int D = 64;                            // head dim
 constexpr int C = 2;                             // consumer warpgroups, 64 rows each
 constexpr int ROWS = 64 * C;                     // rows a CTA owns: kv (dK/dV), q (dQ)
@@ -96,7 +99,6 @@ constexpr uint32_t VEC_BYTES = BN * 4;           // one tile's lse or delta
 constexpr size_t DKV_SMEM =
     1024 + 2 * OWN_BYTES + 2 * STAGES * TILE_BYTES + 2 * STAGES * VEC_BYTES + 8 * (1 + 2 * STAGES);
 constexpr size_t DQ_SMEM = 1024 + 2 * OWN_BYTES + 2 * STAGES * TILE_BYTES + 8 * (1 + 2 * STAGES);
-constexpr float LOG2E = 1.4426950408889634f;
 // registers per thread: __launch_bounds__(384, 1) gives 65536 / 384 rounded
 // down to 8 at launch; setmaxnreg moves them from the producer to the
 // consumers (ptxas must report this count: at fewer, the consumers'
@@ -147,12 +149,6 @@ struct Ops<__half> {
     hi = f.y;
   }
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // x (fp32, an m64n64 accumulator fragment) as the A fragments of four k16
 // steps, hi = round(x) and lo = round(x - hi): the accumulator's layout is

@@ -48,17 +48,47 @@
 //    warpgroup's own Q rows (no longer read) and written by one TMA store,
 //    which drops the rows past the q tail; lse goes straight from registers.
 //
-// d = 512, the VAE decoder's mid attention (flash_fwd_kernel): mma.sync
-// m16n8k16 from ldmatrix'd shared-memory tiles padded against bank
-// conflicts and loaded with cp.async, one block of 8 warps per (32-row q
-// tile, head, batch), the V tile prefetched while Q.K^T runs, logits through
-// shared memory (107 KB of dynamic shared memory): a 64 x 512 fp32 wgmma
-// accumulator per warpgroup does not fit the d = 64 scheme.
+// d = 512, the VAE decoder's mid attention (flash_fwd_d512_sm90_kernel, CTA
+// program in csrc/flash_fwd_d512.cuh). Two bounds. The tensor cores: at the
+// VAE's [16, 4096, 1, 512] the work is 4*B*H*Sq*Sk*d = 550 G operations.
+// And the bytes out of L2: a 64 x 512 fp32 accumulator is half the SM's
+// registers, so a CTA takes 64 q rows only, and each reads its head's whole
+// K and V, 8 MB at 4096 keys, for 64 rows' work: 17 GB per launch, about 64
+// bytes per clock per SM at the tensor cores' rate. Each SM must take in
+// those bytes, and its shared memory must pass them beside the products'
+// operands. The design:
+//  - one CTA per (64-row q tile, head, batch), each reading its K and V from
+//    L2. Clusters of 2 and 4 CTAs along the q tiles of one head, each K/V
+//    tile read once and multicast by TMA into every CTA, divided the L2
+//    bytes but were timed slower on the H100 (the CTAs wait for each other
+//    at every stage; PERF.md section 6): the L2 bytes are not what holds
+//    this kernel back, so it runs no cluster;
+//  - a producer warpgroup (one thread issues the TMA loads; setmaxnreg 24)
+//    and two consumer warpgroups (240) that split d: consumer c owns
+//    O[:, 256c .. 256c + 255] (128 fp32 registers a thread);
+//  - TMA through the same 4-D tensor maps as d = 64, a [rows, 512] tile as
+//    8 boxes of one 128-byte-swizzled 64-column block, into one mbarrier
+//    transaction: Q once (64 KB), 32-key K and V tiles (32 KB each) through a
+//    ring of 2 stages, K and V with barriers of their own, so a consumer can
+//    hand back K while it still reads V (225 KB of shared memory in all);
+//  - S = Q K^T with the reduction split between the consumers: each issues
+//    its half (wgmma m64n32k16 from shared memory), the two swap their fp32
+//    partials through shared memory and both add them, S = S_0 + S_1 in the
+//    same bits, so each reads only its half of every K and V tile and the
+//    products issued are the function's own; the online softmax in
+//    registers, exp as exp2; O_c += P V by wgmma m64n256k16 with P in
+//    registers and V read MN-major;
+//  - a consumer issues tile j's logits and tile j-1's P V before it waits, so
+//    the exchange and the softmax run under the products;
+//  - epilogue: O / l, rounded, staged swizzled into Q's blocks and written by
+//    TMA stores (q tail dropped); lse from registers.
+// At one CTA per SM (225 KB, 384 threads), the VAE's 1024 CTAs are 7.8
+// waves on 132 SMs. PERF.md section 6 gives its times beside both bounds.
 //
 // C interface (bound with ctypes): sa_flash_attention_fwd returns the
-// cudaError_t of the launch (cudaGetLastError), 0 on success, and
-// cudaErrorInvalidValue for a head dim it does not take or a layout whose
-// tensor map the CUDA driver refuses.
+// cudaError_t of the launch (cudaGetLastError), 0 on success,
+// cudaErrorInvalidValue for a head dim it does not take (64 and 512 only) or
+// a layout whose tensor map the CUDA driver refuses.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,6 +97,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_fwd_d512.cuh"
 #include "flash_fwd_d64.cuh"
 #include "sm90.cuh"
 
@@ -85,299 +116,6 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
 };
-
-template <typename T>
-struct Ops;
-
-// the conversions, and the mma.sync of the d = 512 kernel
-template <>
-struct Ops<__nv_bfloat16> : sm90::Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Ops<__half> : sm90::Cvt<__half> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// 16-byte async copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int D, int BQ, int BK>
-constexpr size_t smem_bytes() {
-  // sQ, sK, sV rows of D + 8 (padding keeps ldmatrix conflict-free), sP rows
-  // of BK + 8, sS rows of BK + 4 floats, then m, l, alpha per q row.
-  return (size_t)(BQ * (D + 8) + 2 * BK * (D + 8) + BQ * (BK + 8)) * 2 +
-         (size_t)(BQ * (BK + 4) + 3 * BQ) * 4;
-}
-
-// Loads a [ROWS, D] tile of x (rows r0.., zero past `rows_valid`) into smem
-// with cp.async, 16 bytes per copy.
-template <typename T, int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
-                                                int r0, int rows_valid, int tid) {
-  constexpr int CPR = D / 8;
-  constexpr int LDT = D + 8;
-  for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const bool valid = r0 + r < rows_valid;
-    const T* s = src + (valid ? (long long)(r0 + r) * row_stride : 0) + c;
-    cp_async16(dst + r * LDT + c, s, valid);
-  }
-}
-
-template <typename T, int D, int BQ, int BK, int NW>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Params p) {
-  constexpr int NTHREADS = NW * 32;
-  constexpr int LDT = D + 8;
-  constexpr int LDS = BK + 4;
-  constexpr int LDP = BK + 8;
-  constexpr int CPR = D / 8;
-  // Q.K^T output tiles (16 x 8) per warp, and P.V output tiles per warp.
-  constexpr int MT = BQ / 16;
-  constexpr int NT_S = BK / 8;
-  constexpr int TS = MT * NT_S / NW;
-  constexpr int NT_O = D / 8;
-  constexpr int TO = MT * NT_O / NW;
-  // softmax: TPR consecutive lanes share one q row
-  constexpr int TPR = NTHREADS / BQ;
-  constexpr int CPT = BK / TPR;
-  static_assert(D % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tile shapes");
-  static_assert(TS >= 1 && (MT * NT_S) % NW == 0 && NT_S % TS == 0, "S tiles per warp");
-  static_assert(TO >= 1 && (MT * NT_O) % NW == 0 && NT_O % TO == 0, "O tiles per warp");
-  static_assert(TPR >= 1 && TPR <= 32 && 32 % TPR == 0 && BK % TPR == 0, "softmax split");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BQ * LDT;
-  T* sV = sK + BK * LDT;
-  T* sP = sV + BK * LDT;
-  float* sS = reinterpret_cast<float*>(sP + BQ * LDP);
-  float* sM = sS + BQ * LDS;
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // fragment row
-  const int t4 = lane % 4;  // fragment column pair
-  const int q0 = blockIdx.x * BQ;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-
-  const T* qg = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
-  const T* kg = reinterpret_cast<const T*>(p.k) + bb * p.k_sb + hh * p.k_sh;
-  const T* vg = reinterpret_cast<const T*>(p.v) + bb * p.v_sb + hh * p.v_sh;
-  T* og = reinterpret_cast<T*>(p.o) + bb * p.o_sb + hh * p.o_sh;
-
-  // q scaled in fp32 and rounded to T, as the TPU kernel does
-  for (int i = tid; i < BQ * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.sq) raw = *reinterpret_cast<const uint4*>(qg + (long long)(q0 + r) * p.q_ss + c);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    uint4 packed;
-    T* outv = reinterpret_cast<T*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) outv[j] = Ops<T>::from_f(Ops<T>::to_f(e[j]) * p.scale);
-    *reinterpret_cast<uint4*>(sQ + r * LDT + c) = packed;
-  }
-  for (int r = tid; r < BQ; r += NTHREADS) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.f;
-  }
-
-  const int s_first = warp * TS;
-  const int s_mt = s_first / NT_S;
-  const int s_nt0 = s_first % NT_S;
-  const int o_first = warp * TO;
-  const int o_mt = o_first / NT_O;
-  const int o_nt0 = o_first % NT_O;
-  // ldmatrix address roles: x4 = four 8x8 matrices (lanes 8i..8i+7 address
-  // matrix i), x2 = two matrices (lanes 0..15)
-  const int mi = lane / 8;
-  const int rr = lane % 8;
-  const int l16 = lane % 16;
-
-  float acc[TO][4];
-#pragma unroll
-  for (int t = 0; t < TO; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  const int n_kv = (p.sk + BK - 1) / BK;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BK;
-    load_tile_async<T, D, BK, NTHREADS>(sK, kg, p.k_ss, k0, p.sk, tid);
-    cp_async_commit();
-    load_tile_async<T, D, BK, NTHREADS>(sV, vg, p.v_ss, k0, p.sk, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // K has landed; V may still be in flight
-    __syncthreads();
-
-    // S = Q K^T for this warp's tiles (all in one 16-row band)
-    float s_acc[TS][4];
-#pragma unroll
-    for (int t = 0; t < TS; ++t) s_acc[t][0] = s_acc[t][1] = s_acc[t][2] = s_acc[t][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, sQ + (s_mt * 16 + rr + (mi & 1) * 8) * LDT + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int t = 0; t < TS; ++t) {
-        uint32_t b[2];
-        ldsm_x2(b, sK + ((s_nt0 + t) * 8 + (l16 % 8)) * LDT + kk * 16 + (l16 / 8) * 8);
-        Ops<T>::mma(s_acc[t], a, b);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TS; ++t) {
-      const int col = (s_nt0 + t) * 8 + t4 * 2;
-      const int row = s_mt * 16 + g;
-      float v0 = s_acc[t][0], v1 = s_acc[t][1], v2 = s_acc[t][2], v3 = s_acc[t][3];
-      if (k0 + col >= p.sk) v0 = v2 = -INFINITY;
-      if (k0 + col + 1 >= p.sk) v1 = v3 = -INFINITY;
-      sS[row * LDS + col] = v0;
-      sS[row * LDS + col + 1] = v1;
-      sS[(row + 8) * LDS + col] = v2;
-      sS[(row + 8) * LDS + col + 1] = v3;
-    }
-    __syncthreads();
-
-    // online softmax over this kv tile; P rounded to T for P.V, l summed
-    // from the unrounded fp32 P
-    {
-      const int r = tid / TPR;
-      const int part = tid % TPR;
-      const float* srow = sS + r * LDS + part * CPT;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      T* prow = sP + r * LDP + part * CPT;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float e = expf(srow[c] - m_new);
-        sum += e;
-        prow[c] = Ops<T>::from_f(e);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // acc = acc * alpha + P V
-    const float al_lo = sA[o_mt * 16 + g];
-    const float al_hi = sA[o_mt * 16 + g + 8];
-#pragma unroll
-    for (int t = 0; t < TO; ++t) {
-      acc[t][0] *= al_lo;
-      acc[t][1] *= al_lo;
-      acc[t][2] *= al_hi;
-      acc[t][3] *= al_hi;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, sP + (o_mt * 16 + rr + (mi & 1) * 8) * LDP + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int t = 0; t < TO; ++t) {
-        uint32_t b[2];
-        ldsm_x2_trans(b, sV + (kk * 16 + (l16 / 8) * 8 + (l16 % 8)) * LDT + (o_nt0 + t) * 8);
-        Ops<T>::mma(acc[t], a, b);
-      }
-    }
-    __syncthreads();  // sK, sV, sS, sP are rewritten by the next tile
-  }
-
-  const float l_lo = sL[o_mt * 16 + g];
-  const float l_hi = sL[o_mt * 16 + g + 8];
-  const int r_lo = q0 + o_mt * 16 + g;
-  const int r_hi = r_lo + 8;
-#pragma unroll
-  for (int t = 0; t < TO; ++t) {
-    const int col = (o_nt0 + t) * 8 + t4 * 2;
-    if (r_lo < p.sq)
-      *reinterpret_cast<uint32_t*>(og + (long long)r_lo * p.o_ss + col) =
-          Ops<T>::pack(acc[t][0] / l_lo, acc[t][1] / l_lo);
-    if (r_hi < p.sq)
-      *reinterpret_cast<uint32_t*>(og + (long long)r_hi * p.o_ss + col) =
-          Ops<T>::pack(acc[t][2] / l_hi, acc[t][3] / l_hi);
-  }
-  if (p.lse != nullptr) {
-    for (int r = tid; r < BQ; r += NTHREADS) {
-      if (q0 + r < p.sq) p.lse[((long long)bb * p.sq + q0 + r) * p.h + hh] = sM[r] + logf(sL[r]);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK, int NW>
-cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, BQ, BK>();
-  auto kernel = flash_fwd_kernel<T, D, BQ, BK, NW>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, b);
-  kernel<<<grid, NW * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // d = 64: wgmma, TMA, warp specialisation (csrc/flash_fwd_d64.cuh)
@@ -413,10 +151,45 @@ cudaError_t launch_d64(const Params& a, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d = 512: wgmma, TMA, d split between two consumers (csrc/flash_fwd_d512.cuh)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(d512::NTHREADS, 1)
+    flash_fwd_d512_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_o, const d512::Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  d512::attend<T>(smem_raw, &tm_q, &tm_k, &tm_v, &tm_o, p);
+}
+
+template <typename T>
+cudaError_t launch_d512(const Params& a, int b, cudaStream_t stream) {
+  using sm90::make_map;
+  constexpr bool is_half = std::is_same<T, __half>::value;
+  constexpr int D = d512::D;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!make_map(&tm_q, a.q, is_half, a.sq, a.h, b, a.q_sb, a.q_ss, a.q_sh, d512::BQ, D) ||
+      !make_map(&tm_k, a.k, is_half, a.sk, a.h, b, a.k_sb, a.k_ss, a.k_sh, d512::BK, D) ||
+      !make_map(&tm_v, a.v, is_half, a.sk, a.h, b, a.v_sb, a.v_ss, a.v_sh, d512::BK, D) ||
+      !make_map(&tm_o, a.o, is_half, a.sq, a.h, b, a.o_sb, a.o_ss, a.o_sh, d512::BQ, D))
+    return cudaErrorInvalidValue;
+  const d512::Params p{a.lse, a.sq, a.sk, a.h, a.scale};
+  auto kernel = flash_fwd_d512_sm90_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d512::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + d512::BQ - 1) / d512::BQ, a.h, b);
+  kernel<<<grid, d512::NTHREADS, d512::SMEM, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const Params& p, int b, int d, cudaStream_t stream) {
   if (d == 64) return launch_d64<T>(p, b, stream);
-  if (d == 512) return launch<T, 512, 32, 32, 8>(p, b, stream);
+  if (d == 512) return launch_d512<T>(p, b, stream);
   return cudaErrorInvalidValue;
 }
 

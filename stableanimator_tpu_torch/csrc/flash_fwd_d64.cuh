@@ -2,8 +2,9 @@
 // CTA program that the streamed kernel (csrc/flash_attention_fwd.cu, one CTA
 // per q tile) and the resident one (csrc/flash_attention_resident.cu, a
 // cluster of CTAs that share every K/V tile) both run, `attend<T, CLUSTER>`,
-// with its tile sizes, online softmax and products. The source notes of the
-// two kernels say what bounds them and why they are built so.
+// with its tile sizes and products (the online softmax is csrc/sm90.cuh's).
+// The source notes of the two kernels say what bounds them and why they are
+// built so.
 //
 // One CTA takes BQ = 192 q rows of one (batch, head) and four warpgroups: a
 // producer, whose one thread issues the TMA loads (Q once, then 128-key K and
@@ -42,7 +43,6 @@ constexpr uint32_t WG_Q_BYTES = 64 * ROW_BYTES;
 constexpr uint32_t KV_BYTES = BK * ROW_BYTES;
 // 1024 bytes of slack to align the swizzled tiles, the tiles, the mbarriers
 constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
-constexpr float LOG2E = 1.4426950408889634f;
 // registers per thread after setmaxnreg: 128 * 24 + 384 * 160 fit in the
 // 512 * 128 that __launch_bounds__(512, 1) gives the CTA at launch
 constexpr int PRODUCER_REGS = 24;
@@ -55,73 +55,8 @@ struct Params {
 };
 
 using sm90::Cvt;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Online softmax of one kv tile whose logits are in s (the m64n128
-// accumulator fragment: s[4n], s[4n+1] in row g, s[4n+2], s[4n+3] in row
-// g + 8, columns 8n + 2t, 8n + 2t + 1). Masks the columns at or past `valid`,
-// turns s into P = exp(s - m_new) in place, updates the running max m and this
-// thread's share of l, and returns in a_lo / a_hi the factors that rescale
-// the accumulator.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], int valid, int t, float& m_lo,
-                                             float& m_hi, float& l_lo, float& l_hi, float& a_lo,
-                                             float& a_hi) {
-  if (valid < BK) {
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const int c = 8 * n + 2 * t;
-      if (c >= valid) s[4 * n] = s[4 * n + 2] = -INFINITY;
-      if (c + 1 >= valid) s[4 * n + 1] = s[4 * n + 3] = -INFINITY;
-    }
-  }
-  float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
-    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-  }
-  // every tile holds a valid key, so mx is finite; exp2(-inf) = 0 at the first
-  a_lo = ex2((m_lo - mx_lo) * LOG2E);
-  a_hi = ex2((m_hi - mx_hi) * LOG2E);
-  const float ms_lo = mx_lo * LOG2E, ms_hi = mx_hi * LOG2E;
-  float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-    s[4 * n] = ex2(fmaf(s[4 * n], LOG2E, -ms_lo));
-    s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], LOG2E, -ms_lo));
-    s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], LOG2E, -ms_hi));
-    s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], LOG2E, -ms_hi));
-    sum_lo += s[4 * n] + s[4 * n + 1];
-    sum_hi += s[4 * n + 2] + s[4 * n + 3];
-  }
-  l_lo = l_lo * a_lo + sum_lo;
-  l_hi = l_hi * a_hi + sum_hi;
-  m_lo = mx_lo;
-  m_hi = mx_hi;
-}
-
-// P (fp32, the m64n128 accumulator fragment) rounded to T as the A fragments
-// of eight k16 steps: the accumulator's layout is the A operand's
-template <typename T>
-__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[4 * kk] = Cvt<T>::pack(s[8 * kk], s[8 * kk + 1]);
-    pa[4 * kk + 1] = Cvt<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[4 * kk + 2] = Cvt<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[4 * kk + 3] = Cvt<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
+using sm90::pack_p;
+using sm90::softmax_tile;
 
 // S = Q K^T for one kv tile, issued and committed, not waited for
 template <typename T>

@@ -7,9 +7,11 @@ computes softmax((q * scale) k^T) v over [B, S, H, D] tensors with the TPU
 kernel's rounding: q is scaled in fp32 and rounded to the input dtype,
 softmax statistics and the accumulator are fp32, and P is rounded to the
 input dtype before P.V. `with_lse` also returns the fp32 log-sum-exp
-[B, Sq, H]. Head dim 64 (the UNet) runs a Hopper design (TMA loads through
-tensor maps over the strided inputs, wgmma, a producer warpgroup and three
-consumers); head dim 512 (the VAE decoder's mid block) an mma.sync one.
+[B, Sq, H]. Both head dims run Hopper designs: TMA loads through tensor
+maps over the strided inputs, wgmma, a producer warpgroup and consumer
+warpgroups. Head dim 64 (the UNet): three consumers of 64 q rows each. Head
+dim 512 (the VAE decoder's mid block): one 64-row q tile per CTA and two
+consumers that split d.
 
 Backward: `csrc/flash_attention_bwd.cu` replaces `_bwd_dkv_kernel` and
 `_bwd_dq_kernel` (driven there by `_flash_bwd`): from q, k, v, the output

@@ -21,9 +21,10 @@ from stableanimator_tpu_torch.ops import flash_attention as fa
 
 # (q_len, kv_len, heads, head_dim): the ragged and multi-block cases of
 # tests/test_ops.py, the UNet's head counts, and the VAE's single 512-wide head
+# (also with a q length off its 64-row q tile against more keys)
 CASES = [(256, 256, 2, 64), (300, 300, 2, 64), (128, 512, 2, 64), (640, 576, 2, 64),
          (256, 256, 5, 64), (300, 300, 5, 64), (128, 512, 5, 64), (640, 576, 5, 64),
-         (300, 300, 1, 512)]
+         (300, 300, 1, 512), (200, 300, 1, 512)]
 # fp32: the two paths differ only in summation order (tests/test_ops.py uses
 # 2e-4 for flash vs XLA). bf16: both round q*scale, P and the output to bf16
 # at the same places; exp and summation order can move an output by one
@@ -73,22 +74,27 @@ def test_non_cpu_non_cuda_tensors_raise():
 LOG2E = 1.4426950408889634
 
 
-def _online_softmax(q, k, v, bk, exp2=False, skip_tile=None, v_weight_tile=None, acc_bf16=False):
-    """The CUDA kernel's algorithm in plain PyTorch: kv tiles of `bk` keys,
+def _online_softmax(q, k, v, bk, exp2=False, split=False, skip_tile=None, v_weight_tile=None,
+                    acc_bf16=False):
+    """The CUDA kernels' algorithm in plain PyTorch: kv tiles of `bk` keys,
     running row max, P rounded to the input dtype at that max, fp32
     accumulator rescaled per tile. `exp2` takes exp(x) as exp2(x log2 e) with
-    log2 e folded into the product, as the d = 64 kernel does. The other
-    keyword arguments inject faults."""
+    log2 e folded into the product, as both kernels do. `split` forms the
+    logits as the fp32 sum of the two head-dim halves' partial products, as
+    the d = 512 kernel's two consumers do. The other keyword arguments
+    inject faults."""
     dt = q.dtype
     qs = (q.float() / math.sqrt(q.shape[-1])).to(dt).float()
     b, sq, h, d = q.shape
+    halves = (slice(0, d // 2), slice(d // 2, d)) if split else (slice(0, d),)
     m = torch.full((b, h, sq), -math.inf)
     l = torch.zeros((b, h, sq))
     acc = torch.zeros((b, h, sq, d))
     for i, t0 in enumerate(range(0, k.shape[1], bk)):
         if i == skip_tile:
             continue
-        s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, t0:t0 + bk].float())
+        kt = k[:, t0:t0 + bk].float()
+        s = sum(torch.einsum("bqhd,bkhd->bhqk", qs[..., c], kt[..., c]) for c in halves)
         m_new = torch.maximum(m, s.amax(-1))
         if exp2:
             p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
@@ -105,16 +111,20 @@ def _online_softmax(q, k, v, bk, exp2=False, skip_tile=None, v_weight_tile=None,
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(dt)
 
 
-# (q/kv len, heads, head dim, dtype, kv tile, exp2): the d = 512 kernel (32-key
-# tiles, exp), the earlier d = 64 tiling (64-key tiles, exp) and the d = 64
-# kernel (128-key tiles, exp2), bf16 and fp16
-@pytest.mark.parametrize("s,h,d,dtype,bk,exp2", [(1024, 5, 64, torch.bfloat16, 64, False),
-                                                 (1024, 1, 512, torch.bfloat16, 32, False),
-                                                 (1024, 2, 64, torch.float16, 64, False),
-                                                 (1024, 5, 64, torch.bfloat16, 128, True),
-                                                 (1024, 2, 64, torch.float16, 128, True),
-                                                 (1000, 3, 64, torch.bfloat16, 128, True)])
-def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, d, dtype, bk, exp2):
+# (q/kv len, heads, head dim, dtype, kv tile, exp2, split): the earlier d = 64
+# tiling (64-key tiles, exp), the d = 64 kernel (128-key tiles, exp2) and the
+# d = 512 kernel (32-key tiles, exp2, the logits summed from two head-dim
+# halves, also off a whole tile), bf16 and fp16
+@pytest.mark.parametrize("s,h,d,dtype,bk,exp2,split", [
+    (1024, 5, 64, torch.bfloat16, 64, False, False),
+    (1024, 1, 512, torch.bfloat16, 32, True, True),
+    (1024, 2, 64, torch.float16, 64, False, False),
+    (1024, 5, 64, torch.bfloat16, 128, True, False),
+    (1024, 2, 64, torch.float16, 128, True, False),
+    (1000, 3, 64, torch.bfloat16, 128, True, False),
+    (1000, 1, 512, torch.float16, 32, True, True)])
+def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, d, dtype, bk, exp2,
+                                                                          split):
     gen = torch.Generator().manual_seed(s + h + d)
     q, k, v = (torch.randn((1, s, h, d), generator=gen).to(dtype) for _ in range(3))
     ref = fa.flash_attention_reference(q, k, v)
@@ -123,7 +133,7 @@ def test_kernel_tolerance_accepts_the_kernels_rounding_and_rejects_faults(s, h, 
     def share(out):          # the largest share of the bound an output uses
         return ((out.float() - ref.float()).abs() / bound).max().item()
 
-    assert share(_online_softmax(q, k, v, bk, exp2)) < 1.0
-    assert share(_online_softmax(q, k, v, bk, exp2, skip_tile=3)) > 1.0
-    assert share(_online_softmax(q, k, v, bk, exp2, v_weight_tile=3)) > 1.0
-    assert share(_online_softmax(q, k, v, bk, exp2, acc_bf16=True)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, split)) < 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, split, skip_tile=3)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, split, v_weight_tile=3)) > 1.0
+    assert share(_online_softmax(q, k, v, bk, exp2, split, acc_bf16=True)) > 1.0

@@ -60,6 +60,25 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_chip_smoke_profile_categories_keep_the_kernels_apart():
+    import chip_smoke
+
+    names = {"void (anonymous namespace)::flash_fwd_sm90_kernel<__nv_bfloat16>(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, d64::Params)": "flash_attention_fwd",
+             "void (anonymous namespace)::flash_fwd_d512_sm90_kernel<__half>(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, d512::Params)":
+                 "flash_attention_fwd",
+             "void (anonymous namespace)::flash_resident_sm90_kernel<__nv_bfloat16>(...)":
+                 "flash_attention_resident",
+             "void (anonymous namespace)::flash_bwd_dkv_sm90_kernel<__half>(...)":
+                 "flash_attention_bwd_dkv",
+             "void (anonymous namespace)::flash_bwd_dq_sm90_kernel<__nv_bfloat16>(...)":
+                 "flash_attention_bwd_dq",
+             "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
+             "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise"}
+    assert {name: chip_smoke.category(name) for name in names} == names
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
