@@ -44,6 +44,12 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the products they issue (P and dS split in two)
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
+  face     the ONNX -> torch executor on the card: an iresnet100 stand-in
+           (glintr100's architecture, seeded) and an SCRFD-signature
+           stand-in exported with torch's legacy exporter; the executor at
+           batch 16 against the module's forward and input gradient (within
+           FACE_REL of their largest element), both timed beside the
+           module; FaceModel's embedding of the reference image
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
            seeded weights: one warm-up request, one timed request; output
            shape / range and the kernel launch counts are asserted; the
@@ -51,6 +57,20 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            kernel's per-request times; then the resident A/B: the same
            request with SA_TPU_RESIDENT_KV_MAX_BYTES at 0 and at 4 MiB in
            turns (0, 4 MiB, 4 MiB, 0), each route's launches asserted
+  faceopt  a micro face-opt generate, card vs CPU; then the generate
+           request with the HJB face optimiser (steps 1, lr 0.1, from step
+           8, crop 16; the iresnet100 stand-in as recogniser, its embedding
+           of the reference as target): warm-up and timed, 17 refines and
+           the plain request's 10 x steps + 1 forward launches (the crop
+           decodes stay off the kernel) asserted, frames finite in [0, 1]
+           and unlike the plain request's, the overhead over it and the
+           identity cost before and after the refine at step 8 printed;
+           then the micro CLI with --face_optimize_steps 1 and the stand-in
+           antelopev2 files
+  serve    cli.serve's AnimationService at full width with the stand-in
+           antelopev2 files, behind make_handler on 127.0.0.1 in a thread:
+           /healthz, two 512x512x16 requests (mp4, json; launches asserted),
+           a 400 and a 413; the generate phase's models are freed first
   longvideo the inference CLI (`cli.animate.main`, in this process) at full
            width on 64 seeded 512x512 pose PNGs, 25 steps, with the resident
            budget at 4 MiB: 5 tiles in groups of 1 and 5-step segments; the
@@ -68,8 +88,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   profile  one more request and one more training step under
            torch.profiler: device time by kernel category, the busiest
            kernels, and the device's busy share
-The phases run in the order generate (with its profile and the A/B),
-longvideo, train.
+The phases run in the order face, generate (with its profile, the A/B and
+faceopt), serve, longvideo, train.
 Before the last line it prints one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -79,6 +99,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
+import gc
 import io
 import json
 import os
@@ -215,8 +237,8 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # products of 2 B H Sq Sk d operations each kernel issues, P and dS fed to
 # the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
-ALL_PHASES = ("device", "build", "kernels", "small", "generate", "longvideo", "train",
-              "profile")
+ALL_PHASES = ("device", "build", "kernels", "small", "face", "generate", "faceopt", "serve",
+              "longvideo", "train", "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
@@ -255,6 +277,19 @@ TRAIN_TIMED_STEPS = 3
 # denoised in groups of 1 (UNet batch 2 x 16, as the flat request's) and
 # 5-step segments; decoded in 4 groups of 16 frames
 LONGVIDEO_FRAMES, LONGVIDEO_TILES, LONGVIDEO_DECODE_GROUPS = 64, 5, 4
+# the face phase: the ONNX executor on an iresnet100 stand-in (glintr100's
+# architecture) at batch 16 against the torch module. In fp64 on both sides
+# the output and the input gradient must agree within 1e-9 of their largest
+# element (the same function, summation order only). In fp32 (TF32 off) the
+# output within 1e-4; the fp32 gradient is printed, not bounded: the
+# executor's BatchNorm and PReLU round differently from cuDNN's, and a
+# pre-activation that moves by ~1e-7 across 0 switches a PReLU's slope
+# (1 <-> ~0.25), so single gradient elements differ by up to ~1e-3 of the
+# largest while both are right (H100, iresnet100 at batch 16)
+FACE_BATCH, FACE_REL, FACE_REL64 = 16, 1e-4, 1e-9
+# the face-opt request: FaceOptConfig(steps=1) with the JAX package's other
+# defaults (lr 0.1, start step 8, crop 16) refines x0_hat at steps 8..24
+FACEOPT_START = 8
 
 
 def log(*args):
@@ -763,7 +798,7 @@ def phase_generate(steps: int):
             raise SystemExit(f"flash kernel launched {launches} times, expected {expected}")
         results[run] = dict(seconds=total, phases=timings, launches=launches,
                             by_shape=by_shape, peak_gib=peak_gb)
-    return results, (models, cfg, ref, pose, face)
+    return results, (models, cfg, ref, pose, face), frames
 
 
 def _launch_counts() -> dict:
@@ -951,6 +986,365 @@ def phase_longvideo(steps: int):
     return dict(resident, streamed=streamed)
 
 
+def _u8(x: torch.Tensor):
+    """[..., 3] pixels in [0, 1] on any device -> uint8 numpy."""
+    return (x.float() * 255.0 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def phase_face(root: str) -> dict:
+    """The ONNX -> torch executor on the card: the iresnet100 stand-in
+    (glintr100's architecture, seeded, BatchNorm statistics not the
+    identity) exported with the legacy exporter into `root`/antelopev2 beside
+    an SCRFD-signature stand-in whose score head detects; the executor at
+    batch 16 against the module's own forward and input gradient, both timed;
+    then FaceModel.get_id_embedding of the generate phase's reference image.
+    Returns the stand-ins' paths and that embedding (the face-opt target)."""
+    from stableanimator_tpu_torch.preproc import standins
+    from stableanimator_tpu_torch.preproc.face import FaceModel
+    from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+
+    import numpy as np
+    from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+    log(f"[face] torch {torch.__version__}: the legacy exporter's "
+        f"{onnx_proto_utils.__name__} is present")
+    t0 = time.perf_counter()
+    ant = standins.write_antelopev2(os.path.join(root, "antelopev2"))
+    det_path, rec_path = (os.path.join(ant, n) for n in ("scrfd_10g_bnkps.onnx",
+                                                         "glintr100.onnx"))
+    log(f"[face] exported the stand-ins (SCRFD signature at 640x640; iresnet100, "
+        f"{os.path.getsize(rec_path) / 2**20:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+    model = standins.seeded_iresnet(0).cuda()
+    fn = load_onnx_function(rec_path, device="cuda")
+    ops = sorted({n.op_type for n in fn.graph.nodes})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((FACE_BATCH, 3, 112, 112), generator=gen, device="cuda") * 2.0 - 1.0
+    t = torch.randn((FACE_BATCH, 512), generator=gen, device="cuda")
+
+    def grad_of(f, x=x, t=t):
+        xr = x.clone().requires_grad_(True)
+        return torch.autograd.grad((f(xr) * t).sum(), xr)[0]
+
+    def executor(v, weights=None):
+        return fn(v, _weights=weights)[0]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    with torch.no_grad():
+        emb, ref = executor(x), model(x)
+    fwd_err = rel(emb, ref)
+    g_exec, g_mod = grad_of(executor), grad_of(model)
+    grad_err = rel(g_exec, g_mod)
+    grad_norm_err = ((g_exec - g_mod).norm() / g_mod.norm()).item()
+    # the same in fp64: the weights of both cast up, the host-side small
+    # initializers (fp32 numbers) promoted by the ops
+    w64 = {k: v.double() for k, v in fn.weights.items()}
+    model64 = standins.seeded_iresnet(0).cuda().double()
+    x64, t64 = x.double(), t.double()
+    with torch.no_grad():
+        fwd_err64 = rel(executor(x64, w64), model64(x64))
+    grad_err64 = rel(grad_of(lambda v: executor(v, w64), x64, t64), grad_of(model64, x64, t64))
+    del w64, model64
+    with torch.no_grad():
+        ms = {"executor": cuda_ms(lambda: executor(x), iters=10),
+              "module": cuda_ms(lambda: model(x), iters=10)}
+    ms_fb = {"executor": cuda_ms(lambda: grad_of(executor), iters=5),
+             "module": cuda_ms(lambda: grad_of(model), iters=5)}
+    log(f"[face] executor on iresnet100 ({len(fn.graph.nodes)} nodes: {', '.join(ops)}), batch "
+        f"{FACE_BATCH}x3x112x112, against the module: fp64 output max|err| / max|out| "
+        f"{fwd_err64:.2e}, input gradient of sum(emb * t) {grad_err64:.2e} (tol {FACE_REL64}); "
+        f"fp32 output {fwd_err:.2e} (tol {FACE_REL}), gradient max {grad_err:.2e} and norm "
+        f"{grad_norm_err:.2e} of the module's (not bounded: PReLU kinks); fp32 forward "
+        f"{ms['executor']:.3f} ms (module {ms['module']:.3f} ms), forward+backward "
+        f"{ms_fb['executor']:.3f} ms (module {ms_fb['module']:.3f} ms)")
+    if not (fwd_err64 <= FACE_REL64 and grad_err64 <= FACE_REL64 and fwd_err <= FACE_REL):
+        raise SystemExit("the ONNX executor disagrees with the torch module on the card")
+    del model, fn
+    ref_u8 = _u8(_inputs(512, 512, 1, 512, "cuda")[0][0])   # the generate phase's reference
+    face_model = FaceModel(det_path, rec_path, device="cuda")
+    t0 = time.perf_counter()
+    target = face_model.get_id_embedding(ref_u8[..., ::-1])   # the reference channel order
+    sec = time.perf_counter() - t0
+    if target is None or not np.isfinite(target).all() or not np.any(target):
+        raise SystemExit(f"FaceModel found no usable face in the reference: {target}")
+    log(f"[face] FaceModel.get_id_embedding of the 512x512 reference on the card: "
+        f"{len(face_model.detector(ref_u8[..., ::-1])[0])} faces, embedding {target.shape} "
+        f"norm {np.linalg.norm(target):.4f} in {sec * 1e3:.1f} ms")
+    return dict(root=root, rec_path=rec_path, target=target)
+
+
+def _small_faceopt(root: str):
+    """A micro face-opt generate (fp32, a small iresnet recogniser) on the
+    card against the same on the CPU, within SMALL_ATOL."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+    from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, make_face_optimizer
+    from stableanimator_tpu_torch.preproc import standins
+    from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+
+    rec = standins.export_onnx(
+        standins.seeded_iresnet(0, layers=(1, 1, 1, 1), widths=(16, 32, 32, 64),
+                                num_features=64),
+        (torch.zeros(1, 3, 112, 112),), os.path.join(root, "small_rec.onnx"),
+        constant_folding=False)
+    cfg = PipelineConfig(num_frames=4, tile_size=4, tile_overlap=1, num_inference_steps=2,
+                         decode_chunk_size=2)
+    seeded = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu", seed=0)
+    ref, pose, face, aug = _inputs(64, 64, 4, 32, "cpu", seed=3)
+    init = torch.randn((1, 4, 8, 8, 4), generator=torch.Generator().manual_seed(4))
+    target = torch.randn(64, generator=torch.Generator().manual_seed(5)).numpy()
+    out = {}
+    for device in ("cpu", "cuda"):
+        models = build_models(**micro_model_kwargs(), dtype=torch.float32, device=device,
+                              seed=None)
+        for a, b in zip(seeded, models):
+            b.load_state_dict(a.state_dict())
+        opt = make_face_optimizer(models, FaceOptConfig(steps=1, start_step=0),
+                                  load_onnx_function(rec, device=device), target, pose, 8, 8)
+        out[device] = generate(models, ref, pose, face, cfg, aug_noise=aug, init_noise=init,
+                               face_opt=opt, device=device).cpu()
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    log(f"[faceopt] micro face-opt generate fp32 (refine at both steps), card vs CPU: max abs "
+        f"{err:.3e} tol {SMALL_ATOL}")
+    if not err <= SMALL_ATOL:
+        raise SystemExit("the micro face-opt generate on the card disagrees with the CPU")
+
+
+def phase_faceopt(models, cfg, ref, pose, face, gen: dict, plain_frames, face_info: dict):
+    """The generate phase's request (same models, inputs and seed) with the
+    HJB face optimiser: FaceOptConfig(steps=1) (lr 0.1, start step 8, crop
+    16), the iresnet100 stand-in as recogniser, its embedding of the
+    reference as target, boxes from the seeded pose renders. Warm-up and
+    timed run; refines, launches, output and the identity cost at step 8
+    checked and printed; then the micro CLI with --face_optimize_steps."""
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import generate
+    from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, make_face_optimizer
+    from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+
+    _small_faceopt(face_info["root"])
+    steps = cfg.num_inference_steps
+    arc = load_onnx_function(face_info["rec_path"], device="cuda")
+    opt = make_face_optimizer(models, FaceOptConfig(steps=1), arc, face_info["target"], pose,
+                              cfg.height // 8, cfg.width // 8, channel_order="reference")
+    refine = opt.refine
+    refined_at, probe = [], {}
+
+    def counting_refine(x0, i):
+        out = refine(x0, i)
+        if out is not x0:
+            refined_at.append(int(i))
+            if int(i) == FACEOPT_START:
+                probe["x0"] = x0.clone()
+        return out
+
+    opt.refine = counting_refine
+    want = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, DKV_KERNEL: 0, DQ_KERNEL: 0}
+    plain_sec = gen["timed"]["seconds"]
+    results = {}
+    for run in ("warm-up", "timed"):
+        refined_at.clear()
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings,
+                          face_opt=opt)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(frames).all())
+        lo, hi = frames.min().item(), frames.max().item()
+        moved = (frames - plain_frames).abs()
+        log(f"[faceopt] {run}: {total:.2f} s (plain request {plain_sec:.2f} s: overhead "
+            f"{total - plain_sec:.2f} s, x{total / plain_sec:.3f}); phases "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
+            + f"; peak {peak_gb:.1f} GiB; {len(refined_at)} refines (at steps {refined_at}); "
+            "launches "
+            + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items())
+            + f" (expected {want[FWD_KERNEL]} forward, as the plain request); out "
+            f"{tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}]; against the "
+            f"plain request's frames max|diff| {moved.max().item():.4f} mean "
+            f"{moved.mean().item():.5f}")
+        checks = {
+            f"{max(steps - FACEOPT_START, 0)} refines": len(refined_at) == max(steps -
+                                                                               FACEOPT_START, 0),
+            "launches as the plain request's": counts["by_kernel"] == want,
+            "frames finite in [0, 1]": finite and lo >= 0.0 and hi <= 1.0,
+            "frames differ from the plain request's": moved.max().item() > 0.0,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"the face-opt request ({run}) failed its checks: {failed}")
+        results[run] = dict(seconds=total, phases=timings, peak_gib=peak_gb,
+                            refines=len(refined_at), **counts)
+    if "x0" in probe:
+        # the cost along the refine's own direction, at its lr and larger ones
+        along = {}
+        for lr in (opt.cfg.lr, 1.0, 10.0, 100.0):
+            step = opt.with_boxes(opt.face_boxes)
+            step.cfg = dataclasses.replace(opt.cfg, lr=lr)
+            with torch.inference_mode():
+                along[lr] = step.identity_cost(step.refine(probe["x0"], FACEOPT_START)).item()
+        with torch.inference_mode():
+            before = opt.identity_cost(probe["x0"]).item()
+        log(f"[faceopt] identity cost at step {FACEOPT_START}: {before:.6f} before the refine; "
+            "after one step at lr " + ", ".join(f"{lr:g}: {c:.6f}" for lr, c in along.items()))
+        results["identity_cost"] = dict(before=before, after=along)
+    del opt.refine      # the counter closes a cycle through opt that would keep the models
+    results["cli"] = _cli_faceopt(face_info["root"])
+    return results
+
+
+def _cli_faceopt(root: str) -> dict:
+    """`cli.animate.main` in this process at the micro scale on the card,
+    with the stand-in antelopev2 files in the checkpoint dir and
+    --face_optimize_steps 1 from step 1 of 4."""
+    import numpy as np
+    from PIL import Image
+
+    from stableanimator_tpu_torch.cli import animate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        Image.fromarray(rng.integers(0, 255, (80, 72, 3), dtype=np.uint8)).save(
+            os.path.join(tmp, "ref.png"))
+        os.makedirs(os.path.join(tmp, "poses"))
+        for i in range(6):
+            img = np.zeros((64, 64, 3), np.uint8)
+            img[10 + 3 * i:30 + 3 * i, 20:40] = 255
+            Image.fromarray(img).save(os.path.join(tmp, "poses", f"frame_{i}.png"))
+        out = os.path.join(tmp, "out")
+        argv = ["--checkpoint_dir", root, "--reference_image", os.path.join(tmp, "ref.png"),
+                "--pose_control_folder", os.path.join(tmp, "poses"), "--output_dir", out,
+                "--height", "64", "--width", "64", "--tile_size", "4", "--frames_overlap", "1",
+                "--num_inference_steps", "4", "--decode_chunk_size", "2", "--model_scale",
+                "micro", "--allow_random_init", "--device", "cuda", "--face_optimize_steps",
+                "1", "--face_opt_start_step", "1"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee()) as printed:
+            info = animate.main(argv)
+        wall = time.perf_counter() - t0
+        text = printed.getvalue()
+        pngs = sorted(os.listdir(os.path.join(out, "animated_images")))
+        files = [os.path.exists(os.path.join(out, f"animation_video.{e}")) for e in ("gif", "mp4")]
+    log(f"[faceopt] micro CLI with --face_optimize_steps 1: {wall:.1f} s, face_opt "
+        f"{info['face_opt']}, {len(pngs)} PNGs, gif/mp4 {files}")
+    checks = {"the HJB face optimization line": "HJB face optimization" in text,
+              "no zero identity embedding": "zero identity embedding" not in text,
+              "face optimisation ran": info["face_opt"],
+              "6 PNGs, a GIF and an mp4": len(pngs) == 6 and all(files)}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the micro face-opt CLI run failed its checks: {failed}")
+    return dict(seconds=info["seconds"], wall=wall)
+
+
+def phase_serve(root: str, gen: dict | None, steps: int) -> dict:
+    """cli.serve's AnimationService at full width (seeded weights, the
+    stand-in antelopev2 files in its checkpoint dir, so FaceModel runs) behind
+    make_handler on 127.0.0.1, port 0, in a thread: /healthz, two 512x512x16
+    POST /animate requests (mp4, json), a 400 (bad size) and a 413 (over
+    --max_request_mb); launches per request asserted."""
+    import base64
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from stableanimator_tpu_torch.cli import serve
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    def b64_png(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def request(addr, method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection(*addr, timeout=600)
+        if headers is not None:           # a bare request with these headers, no body
+            conn.putrequest(method, path)
+            for k, v in headers.items():
+                conn.putheader(k, v)
+            conn.endheaders()
+        else:
+            conn.request(method, path, body=None if body is None else json.dumps(body),
+                         headers={"Content-Type": "application/json"} if body else {})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, resp.getheader("Content-Type"), data
+
+    args = serve.parse_args(["--checkpoint_dir", root, "--allow_random_init", "--port", "0",
+                             "--num_inference_steps", str(steps), "--device", "cuda"])
+    before_gb = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    service = serve.AnimationService(args)
+    torch.cuda.synchronize()
+    log(f"[serve] AnimationService at full width ({args.height}x{args.width}, {steps} steps, "
+        f"seeded weights, face model {'on' if service.face_model else 'OFF'}) in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated ({before_gb:.2f} GiB before it)")
+    if service.face_model is None:
+        raise SystemExit("the server did not load the stand-in antelopev2 face model")
+    ref, pose, _, _ = _inputs(512, 512, 16, 512, "cuda")
+    body = {"reference": b64_png(_u8(ref[0])),
+            "poses": [b64_png(p) for p in _u8((pose + 1.0) / 2.0)]}
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    gen_sec = gen["timed"]["seconds"] if gen else float("nan")
+    want = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, DKV_KERNEL: 0, DQ_KERNEL: 0}
+    results = {"requests": []}
+    try:
+        addr = httpd.server_address
+        status, _, data = request(addr, "GET", "/healthz")
+        health = json.loads(data)
+        log(f"[serve] GET /healthz: {status} {health}")
+        if status != 200 or health["device"] != torch.cuda.get_device_name(0):
+            raise SystemExit(f"/healthz answered {status} {health}")
+        for fmt in ("mp4", "json"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            status, ctype, data = request(addr, "POST", "/animate", dict(body, format=fmt))
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            held_gb = torch.cuda.memory_allocated() / 2**30
+            served = (json.loads(data)["seconds"] if fmt == "json" and status == 200
+                      else float("nan"))
+            mp4 = base64.b64decode(json.loads(data)["mp4"]) if fmt == "json" else data
+            log(f"[serve] POST /animate 16 frames {fmt}: {status} {ctype}, {len(data)} bytes in "
+                f"{wall:.2f} s at the client (server's generate {served:.2f} s; the generate "
+                f"phase's timed request {gen_sec:.2f} s); peak {peak_gb:.1f} GiB, "
+                f"{held_gb:.2f} GiB allocated after it; launches "
+                + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items()))
+            if status != 200 or b"ftyp" not in mp4[:64] or counts["by_kernel"] != want:
+                raise SystemExit(f"POST /animate ({fmt}) answered {status}, launches "
+                                 f"{counts['by_kernel']} (expected {want})")
+            results["requests"].append(dict(format=fmt, wall=wall, seconds=served,
+                                            peak_gib=peak_gb, held_gib=held_gb, **counts))
+        results["peak_gib"] = max(r["peak_gib"] for r in results["requests"])
+        status_400, _, data_400 = request(addr, "POST", "/animate", dict(body, height=100))
+        status_413, _, data_413 = request(addr, "POST", "/animate", headers={
+            "Content-Type": "application/json", "Content-Length": str(10**12)})
+        log(f"[serve] bad size: {status_400} {data_400[:80]!r}; 10^12-byte claim: {status_413} "
+            f"{data_413[:80]!r}; peak {results['peak_gib']:.1f} GiB over the two requests")
+        if (status_400, status_413) != (400, 413):
+            raise SystemExit(f"the rejections answered {status_400} and {status_413}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    del service
+    return results
+
+
 def phase_train():
     from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
@@ -1118,13 +1512,18 @@ def profile_generate(models, cfg, ref, pose, face):
              lambda: generate(models, ref, pose, face, cfg, device="cuda"))
 
 
-def _kernel_entries(max_err, rows, gen, longvideo, train) -> list:
+def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None) -> list:
     """The JSON line's entries: each kernel's times at its shapes, weighted
     by the launches the main paths made at those shapes (generate's timed
-    request, the 64-frame CLI request and one timed training step)."""
+    request, the timed face-opt request, the server's first request, the
+    64-frame CLI request and one timed training step)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
+    if faceopt:
+        paths["faceopt"] = faceopt["timed"]["by_shape"]
+    if served:
+        paths["serve"] = served["requests"][0]["by_shape"]
     if longvideo:
         paths["longvideo"] = longvideo["by_shape"]
     if train:
@@ -1159,6 +1558,7 @@ def _kernel_entries(max_err, rows, gen, longvideo, train) -> list:
                          else "bytes"),
             "library_ms": total["library_ms"],
             "per_request_of": "sum over the launches of generate's timed request, of the "
+                              "timed face-opt request, of the server's first request, of the "
                               "64-frame CLI request and of one timed training step",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
@@ -1189,25 +1589,42 @@ def main() -> int:
     # train run the default route
     os.environ.pop(RESIDENT_BUDGET_ENV, None)
     t_start = time.perf_counter()
+    standins = tempfile.mkdtemp(prefix="chip_smoke_antelopev2_")   # the face phases' files
+    try:
+        return _run(phases, args.steps, t_start, standins)
+    finally:
+        shutil.rmtree(standins, ignore_errors=True)
+
+
+def _run(phases, steps: int, t_start: float, standins: str) -> int:
     l2_rate = None
     if "device" in phases:
         l2_rate = phase_device()
     if "build" in phases:
         phase_build()
-    gen = longvideo = train = None
+    gen = longvideo = train = face = faceopt = served = None
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
     if "small" in phases:
         phase_small()
+    if {"face", "faceopt", "serve"} & set(phases):
+        face = phase_face(standins)
     if "generate" in phases:
-        gen, state = phase_generate(args.steps)
+        gen, state, plain_frames = phase_generate(steps)
         if "profile" in phases:
             profile_generate(*state)
         phase_ab(*state)
-        del state
+        if "faceopt" in phases:
+            faceopt = phase_faceopt(*state, gen, plain_frames, face)
+        del state, plain_frames
+        gc.collect()                 # the generate phase's models go before the server's come
+        torch.cuda.empty_cache()
+    if "serve" in phases:
+        served = phase_serve(standins, gen, steps)
+        gc.collect()
         torch.cuda.empty_cache()
     if "longvideo" in phases:
-        longvideo = phase_longvideo(args.steps)
+        longvideo = phase_longvideo(steps)
         torch.cuda.empty_cache()
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()
@@ -1218,7 +1635,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_cli()
     if "kernels" in phases:
-        log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train)}))
+        log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
+                                                   served)}))
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,17 +13,20 @@ reference's key space; `convert/checkpoints.py::load_state_dicts`):
   image_encoder.npz   SVD image_encoder (CLIP ViT-H)
   pose_net.npz        StableAnimator pose_net.pth
   face_encoder.npz    StableAnimator face_encoder.pth
-Missing files keep seeded random weights with --allow_random_init. Without
-the antelopev2 ONNX files the identity embedding is zero, as in the JAX
-package.
+Missing files keep seeded random weights with --allow_random_init.
+  antelopev2/scrfd_10g_bnkps.onnx + glintr100.onnx
+                      the face model (`preproc/face.py::FaceModel`, run by the
+                      port's ONNX executor on the device): the reference's
+                      identity embedding, and the recogniser of the HJB face
+                      optimisation (--face_optimize_steps). Without them the
+                      embedding is zero and face optimisation is off, as in
+                      the JAX package.
 
 The noise is drawn from a torch.Generator on the device seeded --seed, so a
 run does not reproduce the JAX package's jax.random noise for the same seed.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item that
-brings it: --driving_video_folder (inline DWPose, queue 1 item 11),
---face_optimize_steps > 0 (face optimisation, item 9), and the antelopev2
-ONNX face model when its files are present (item 11).
+brings it: --driving_video_folder (inline DWPose, queue 1 item 11c).
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def parse_args(argv=None):
                         "extraction CLI first)")
     p.add_argument("--driving_video_folder", type=str, default=None,
                    help="folder of RAW driving frames for inline DWPose "
-                        "extraction (not ported yet: ROADMAP queue 1 item 11)")
+                        "extraction (not ported yet: ROADMAP queue 1 item 11c)")
     p.add_argument("--dwpose_dir", type=str, default=None,
                    help="dir with yolox_l.onnx + dw-ll_ucoco_384.onnx "
                         "(default: <checkpoint_dir>/DWPose)")
@@ -88,10 +91,13 @@ def parse_args(argv=None):
                         "released checkpoints were trained against; "
                         "'standard' feeds the recogniser RGB")
     p.add_argument("--face_optimize_steps", type=int, default=0,
-                   help="HJB face-optimisation steps per denoise step (0 = off; "
-                        "not ported yet: ROADMAP queue 1 item 9)")
+                   help="HJB face-optimisation gradient steps per denoise step (the "
+                        "paper's capability; 0 = off). Needs antelopev2/glintr100.onnx "
+                        "in --checkpoint_dir.")
     p.add_argument("--face_opt_lr", type=float, default=0.1)
-    p.add_argument("--face_opt_start_step", type=int, default=8)
+    p.add_argument("--face_opt_start_step", type=int, default=8,
+                   help="first denoise step to apply face optimisation (the face "
+                        "must have formed enough to carry identity)")
     p.add_argument("--init_id_adapter", action="store_true",
                    help="initialise id_to_k/id_to_v from SVD to_k/to_v when "
                         "loading a vanilla SVD unet (reference "
@@ -107,20 +113,33 @@ def _check_ported(args) -> None:
                          "skeletons) or --driving_video_folder (raw frames)")
     if args.driving_video_folder:
         raise NotImplementedError("--driving_video_folder (inline DWPose extraction) is not "
-                                  "ported yet: ROADMAP queue 1 item 11")
-    if args.face_optimize_steps > 0:
-        raise NotImplementedError("--face_optimize_steps (HJB face optimisation) is not "
-                                  "ported yet: ROADMAP queue 1 item 9")
-    antelope = os.path.join(args.checkpoint_dir, "antelopev2")
-    if all(os.path.exists(os.path.join(antelope, f))
-           for f in ("scrfd_10g_bnkps.onnx", "glintr100.onnx")):
-        raise NotImplementedError(f"the antelopev2 ONNX face model ({antelope}) is not "
-                                  "ported yet: ROADMAP queue 1 item 11; move it away to run "
-                                  "with the zero identity embedding")
+                                  "ported yet: ROADMAP queue 1 item 11c")
+
+
+def reference_embedding(checkpoint_dir: str, ref_rgb: np.ndarray, channel_order: str,
+                        device) -> np.ndarray | None:
+    """The antelopev2 face model's identity embedding of the reference image
+    (reference inference_basic.py:516-535), or None, with the JAX package's
+    warnings, when its files are missing or no face is found.
+    channel_order "reference" feeds it the reference's channel-swapped image."""
+    from stableanimator_tpu_torch.preproc.face import FaceModel
+
+    det_path = os.path.join(checkpoint_dir, "antelopev2", "scrfd_10g_bnkps.onnx")
+    rec_path = os.path.join(checkpoint_dir, "antelopev2", "glintr100.onnx")
+    if not (os.path.exists(det_path) and os.path.exists(rec_path)):
+        print("WARNING: antelopev2 ONNX models missing; using zero identity embedding")
+        return None
+    face_input = ref_rgb[..., ::-1] if channel_order == "reference" else ref_rgb
+    emb = FaceModel(det_path, rec_path, device=device).get_id_embedding(face_input)
+    if emb is None:
+        print("WARNING: no face detected in the reference image; using a zero identity "
+              "embedding")
+    return emb
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns {"num_frames", "seconds", "phases", "warm"}."""
+    """Run the CLI; returns {"num_frames", "seconds", "phases", "warm",
+    "face_opt" (whether the request ran the HJB face optimisation)}."""
     args = parse_args(argv)
     _check_ported(args)
 
@@ -176,9 +195,44 @@ def main(argv=None) -> dict:
         output_uint8=True,
     )
 
-    # the antelopev2 face model is not ported (_check_ported raised if present)
-    print("WARNING: antelopev2 ONNX models missing; using zero identity embedding")
-    emb = np.zeros((1, models.face_encoder.config.id_embeddings_dim), np.float32)
+    # face-ID embedding of the reference (reference inference_basic.py:516-535)
+    id_dim = models.face_encoder.config.id_embeddings_dim  # 512 (ArcFace) at full scale
+    face_emb = reference_embedding(args.checkpoint_dir, np.asarray(ref_pil),
+                                   args.face_channel_order, device)
+    emb = np.zeros((1, id_dim), np.float32)
+    if face_emb is not None:
+        if face_emb.shape[-1] != id_dim:  # micro scale + a full-width recogniser
+            print(f"WARNING: identity embedding dim {face_emb.shape[-1]} != model id dim "
+                  f"{id_dim}; truncating/padding (micro smoke)")
+        emb[0] = np.resize(face_emb.astype(np.float32), (id_dim,))
+
+    # HJB face optimiser: built before the warm with placeholder face boxes
+    # (the real ones need the poses); with_boxes swaps them in below
+    face_opt = None
+    if args.face_optimize_steps > 0:
+        rec_path = os.path.join(args.checkpoint_dir, "antelopev2", "glintr100.onnx")
+        if not os.path.exists(rec_path):
+            print("WARNING: --face_optimize_steps needs antelopev2/glintr100.onnx; face "
+                  "optimization disabled")
+        elif face_emb is None or not np.any(face_emb):
+            print("WARNING: no reference identity embedding; face optimization disabled")
+        else:
+            from stableanimator_tpu_torch.pipeline.face_opt import (
+                FaceOptConfig,
+                make_face_optimizer,
+            )
+            from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+
+            focfg = FaceOptConfig(steps=args.face_optimize_steps, lr=args.face_opt_lr,
+                                  start_step=args.face_opt_start_step)
+            # the target is the recogniser's own embedding, not the one resized
+            # to the model's id dim (they differ at the micro scale only)
+            face_opt = make_face_optimizer(
+                models, focfg, load_onnx_function(rec_path, device=device), face_emb, None,
+                args.height // 8, args.width // 8, channel_order=args.face_channel_order,
+                num_frames=num_frames)
+            print(f"HJB face optimization: {focfg.steps} steps/denoise-step, lr={focfg.lr}, "
+                  f"from denoise step {focfg.start_step}")
 
     # the warm (kernel builds) on a thread while the pose PNGs load; it
     # executes nothing, so the request's kernel launches are its own
@@ -189,7 +243,7 @@ def main(argv=None) -> dict:
             t = time.time()
             warm_info.update(warm_generate(models, cfg, device=device,
                                            clip_shape=(ref_pil.height, ref_pil.width),
-                                           execute=False))
+                                           execute=False, face_opt=face_opt))
             warm_info["seconds"] = round(time.time() - t, 1)
         except BaseException as e:  # re-raised on the main thread after the join
             warm_info["error"] = e
@@ -203,6 +257,13 @@ def main(argv=None) -> dict:
         raise warm_info["error"]
     print(f"graph warm: {warm_info['path']} path, {warm_info['programs']} program(s) in "
           f"{warm_info['seconds']}s (overlapped with preprocessing)")
+    if face_opt is not None:
+        # the real per-frame face boxes from the pose renders
+        from stableanimator_tpu_torch.pipeline.face_opt import face_boxes_from_pose_renders
+
+        face_opt = face_opt.with_boxes(face_boxes_from_pose_renders(
+            pose_u8.astype(np.float32) / 127.5 - 1.0, args.height // 8, args.width // 8,
+            face_opt.cfg.latent_crop))
 
     timings: dict = {}
     t0 = time.time()
@@ -213,7 +274,7 @@ def main(argv=None) -> dict:
         # inference_pipeline_animation.py:520)
         clip_image=torch.tensor(pil_to_u8_array(ref_pil)),
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        device=device, timings=timings,
+        face_opt=face_opt, device=device, timings=timings,
         progress=lambda done, total: print(f"  denoise step {done}/{total} dispatched",
                                            flush=True))
     frames = frames.cpu().numpy()
@@ -230,7 +291,8 @@ def main(argv=None) -> dict:
     save_frames_as_png(u8, os.path.join(args.output_dir, "animated_images"))
     print(f"wrote {args.output_dir}/animation_video.{{gif,mp4}}")
     return {"num_frames": num_frames, "seconds": seconds, "phases": timings,
-            "warm": {k: v for k, v in warm_info.items() if k != "error"}}
+            "warm": {k: v for k, v in warm_info.items() if k != "error"},
+            "face_opt": face_opt is not None}
 
 
 if __name__ == "__main__":

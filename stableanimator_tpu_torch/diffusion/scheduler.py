@@ -64,8 +64,15 @@ def pred_original_sample(model_output, sample, sigma):
 def step_euler(model_output, sample, sigma, sigma_next):
     """One Euler step x_t -> x_{t-1}; returns the dtype of `sample`."""
     x0 = pred_original_sample(model_output, sample, sigma)
+    return step_euler_from_x0(x0, sample, sigma, sigma_next)
+
+
+def step_euler_from_x0(x0, sample, sigma, sigma_next):
+    """The Euler step expressed via the predicted clean sample (the HJB
+    face-optimisation path edits x0_hat before integrating); fp32 math,
+    returned in the dtype of `sample`."""
     s = sample.float()
-    derivative = (s - x0) / sigma
+    derivative = (s - x0.float()) / sigma
     return (s + derivative * (sigma_next - sigma)).to(sample.dtype)
 
 

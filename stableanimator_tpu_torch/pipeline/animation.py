@@ -21,8 +21,13 @@ with `progress(done, total)` after each, and the decode in groups of frames
 the same loop, not a program of its own; the segments and groups keep the
 JAX package's plan, and its numbers, all the same.
 
-Inputs and outputs keep the JAX package's channels-last layouts. Face
-optimisation and the mesh raise NotImplementedError.
+With a `face_opt` (pipeline/face_opt.py::FaceOptimizer) every Euler update
+of both denoise loops goes through the HJB identity refinement of x0_hat
+(`_advance_latents`), and the segmented path's step budget halves, as in
+the JAX package.
+
+Inputs and outputs keep the JAX package's channels-last layouts. The mesh
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,8 +52,10 @@ from stableanimator_tpu_torch.core.config import (
 )
 from stableanimator_tpu_torch.diffusion.scheduler import (
     make_schedule,
+    pred_original_sample,
     scale_model_input,
     step_euler,
+    step_euler_from_x0,
 )
 from stableanimator_tpu_torch.diffusion.tiling import (
     auto_tile_batch,
@@ -194,9 +201,10 @@ def encode_conditioning(models: AnimationModels, ref_image, face_embedding,
 
 def denoise(models: AnimationModels, latents, context, image_latents, add_time_ids,
             pose_latents, schedule, cfg: PipelineConfig, step_start: int = 0,
-            num_steps: int | None = None):
+            num_steps: int | None = None, face_opt=None):
     """Euler steps with CFG: steps [step_start, step_start + num_steps) of
-    `schedule` (all of them by default).
+    `schedule` (all of them by default), each through `face_opt`'s
+    refinement when one is given.
 
     latents [1, F, h, w, 4] fp32 (already scaled by the init sigma);
     context [2, 1+num_id, D]; image_latents [2, h, w, 4]; pose_latents
@@ -221,7 +229,7 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
     if mtb is not None and mtb < n_tiles:
         return _denoise_grouped(models, latents, context, image_latents, add_time_ids,
                                 pose_latents, schedule, mtb, tiles_np, weights_np, counts_t,
-                                guidance, steps)
+                                guidance, steps, face_opt)
 
     tiles = torch.from_numpy(tiles_np.astype(np.int64)).to(device)
     flat_idx = tiles.reshape(-1)
@@ -253,18 +261,23 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
         noise_uncond = blend(out[:n_tiles])
         noise_cond = blend(out[n_tiles:])
         noise_pred = noise_uncond + guidance * (noise_cond - noise_uncond)
-        latents = _advance_latents(latents, noise_pred, sigma, sigma_next)
+        latents = _advance_latents(latents, noise_pred, sigma, sigma_next, i, face_opt)
     return latents
 
 
-def _advance_latents(lat, noise_pred, sigma, sigma_next):
-    """One Euler update (the JAX package's, without face optimisation)."""
+def _advance_latents(lat, noise_pred, sigma, sigma_next, i: int, face_opt):
+    """One Euler update, through the HJB inner solver on x0_hat when
+    `face_opt` has steps (`FaceOptimizer.refine` acts at its step window)."""
+    if face_opt is not None and face_opt.cfg.steps > 0:
+        x0 = pred_original_sample(noise_pred[None], lat, sigma)
+        x0 = face_opt.refine(x0, i)
+        return step_euler_from_x0(x0, lat, sigma, sigma_next)
     return step_euler(noise_pred[None], lat, sigma, sigma_next)
 
 
 def _denoise_grouped(models: AnimationModels, latents, context, image_latents, add_time_ids,
                      pose_latents, schedule, group_size: int, tiles_np, weights_np, counts_t,
-                     guidance, steps):
+                     guidance, steps, face_opt=None):
     """Long-video denoise: one UNet call per group of `group_size` tiles.
 
     The math of the all-tiles path in `denoise` (each tile's UNet output is
@@ -318,7 +331,7 @@ def _denoise_grouped(models: AnimationModels, latents, context, image_latents, a
         noise_uncond = acc_u / counts_t
         noise_cond = acc_c / counts_t
         noise_pred = noise_uncond + guidance * (noise_cond - noise_uncond)
-        latents = _advance_latents(latents, noise_pred, sigma, sigma_next)
+        latents = _advance_latents(latents, noise_pred, sigma, sigma_next, i, face_opt)
     return latents
 
 
@@ -397,15 +410,12 @@ def _to_sym(x):
     return x
 
 
-def _check_slice(face_opt, mesh) -> None:
+def _check_slice(mesh) -> None:
     """Raise for what the port does not cover yet, naming the ROADMAP item
     that brings it."""
-    if face_opt is not None:
-        raise NotImplementedError("face optimisation (face_opt) is not ported yet: "
-                                  "ROADMAP queue 1 item 9")
     if mesh is not None:
         raise NotImplementedError("multi-device generate (mesh) is not ported yet: "
-                                  "ROADMAP queue 1 item 11")
+                                  "ROADMAP queue 1 item 11d")
 
 
 def _mark(timings: dict | None, name: str | None, t0: float,
@@ -463,17 +473,20 @@ def _prepare_denoise_state(models: AnimationModels, ref_image, pose_pixels, face
 
 
 def _denoise_segment(models: AnimationModels, latents, context, image_latents, add_time_ids,
-                     pose_latents, cfg: PipelineConfig, step_start: int, num_steps: int):
+                     pose_latents, cfg: PipelineConfig, step_start: int, num_steps: int,
+                     face_opt=None):
     """`num_steps` Euler steps from schedule index `step_start`; returns
     (latents, step_start + num_steps)."""
     schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=latents.device)
     latents = denoise(models, latents, context, image_latents, add_time_ids, pose_latents,
-                      schedule, cfg, step_start=step_start, num_steps=num_steps)
+                      schedule, cfg, step_start=step_start, num_steps=num_steps,
+                      face_opt=face_opt)
     return latents, step_start + num_steps
 
 
 def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd: int,
-                        device: torch.device, progress=None, timings: dict | None = None):
+                        device: torch.device, progress=None, timings: dict | None = None,
+                        face_opt=None):
     """The Euler loop of `state` (from `_prepare_denoise_state`) in segments
     of `spd` steps, then `_decode_dispatched`. progress: optional
     callable(done_steps, total_steps), called after each segment is
@@ -484,7 +497,7 @@ def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd
     done = 0
     while done < n:
         latents, done = _denoise_segment(models, latents, context, image_latents, add_time_ids,
-                                         pose_latents, cfg, done, min(spd, n - done))
+                                         pose_latents, cfg, done, min(spd, n - done), face_opt)
         if progress is not None:
             progress(done, n)
     t0 = _mark(timings, "denoise", t0, device)
@@ -532,6 +545,9 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
                     tile noise (scaled by the init sigma here)
     generator:      draws the noises not given; default a generator on the
                     device seeded 23123134
+    face_opt:       optional pipeline.face_opt.FaceOptimizer: the HJB identity
+                    refinement of x0_hat at every Euler update (it also
+                    halves the segmented path's step budget)
     timings:        optional dict that receives seconds per phase
                     (conditioning, pose, denoise, decode)
     progress:       optional callable(done_steps, total_steps), called after
@@ -548,16 +564,16 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
     f = pose_pixels.shape[0]
     cfg = dataclasses.replace(cfg, height=ref_image.shape[1], width=ref_image.shape[2],
                               num_frames=f, tile_size=min(cfg.tile_size, f))
-    _check_slice(face_opt, mesh)
-    spd = resolve_steps_per_dispatch(cfg)
+    _check_slice(mesh)
+    spd = resolve_steps_per_dispatch(cfg, face_opt is not None)
     state = _prepare_denoise_state(models, ref_image, pose_pixels, face_embedding, cfg, device,
                                    clip_image=clip_image, aug_noise=aug_noise,
                                    init_noise=init_noise, generator=generator, timings=timings)
     if spd is not None:
-        return _generate_segmented(models, state, cfg, spd, device, progress, timings)
+        return _generate_segmented(models, state, cfg, spd, device, progress, timings, face_opt)
     t0 = _mark(timings, None, 0.0, device)
     schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
-    latents = denoise(models, *state, schedule, cfg)
+    latents = denoise(models, *state, schedule, cfg, face_opt=face_opt)
     t0 = _mark(timings, "denoise", t0, device)
     frames = decode_frames(models, latents, cfg)
     _mark(timings, "decode", t0, device)
@@ -595,16 +611,22 @@ def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
       libraries' kernel choices; False does not. The flat path never
       executes.
 
+    face_opt: optional FaceOptimizer (built with placeholder boxes before
+      the poses exist; `with_boxes` swaps the real ones in): the plan of a
+      face-opt request, whose segments are half as long, executed through
+      its refinement.
+
     Returns {"path", "programs", "executed", "face_opt"}, as the JAX
     package's does."""
     device = resolve_device(device)
-    _check_slice(face_opt, mesh)
+    _check_slice(mesh)
     if device.type == "cuda":
         _build_forward_kernels()
     cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, cfg.num_frames))
-    spd = resolve_steps_per_dispatch(cfg)
+    spd = resolve_steps_per_dispatch(cfg, face_opt is not None)
     if spd is None:
-        return {"path": "flat", "programs": 1, "executed": False, "face_opt": False}
+        return {"path": "flat", "programs": 1, "executed": False,
+                "face_opt": face_opt is not None}
 
     h, w, f = cfg.height, cfg.width, cfg.num_frames
     n = cfg.num_inference_steps
@@ -627,13 +649,13 @@ def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
             init_noise=torch.zeros((1, cfg.tile_size, h // 8, w // 8, 4), device=device))
         latents = state[0]
         for k in seg_lengths:
-            latents, _ = _denoise_segment(models, latents, *state[1:], cfg, 0, k)
+            latents, _ = _denoise_segment(models, latents, *state[1:], cfg, 0, k, face_opt)
         for g in group_sizes:
             _decode_group(models, latents, 0, cfg, g)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     return {"path": "segmented", "programs": programs, "executed": bool(do_exec),
-            "face_opt": False}
+            "face_opt": face_opt is not None}
 
 
 def output_uint8(frames: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The port's inference CLI (`stableanimator_tpu_torch.cli.animate`) on the
 CPU, at the micro scale and 64x64 with seeded random weights: the files it
 writes, its frames against a direct `generate` with the same seed, the
-options not ported yet, and the port's `utils` against the JAX package's
-(byte for byte).
+options not ported yet, the face model and face optimisation with stand-in
+antelopev2 files, and the port's `utils` against the JAX package's (byte
+for byte).
 """
 
 import os
@@ -34,6 +35,17 @@ def inputs(tmp_path):
         img[10 + 3 * i:30 + 3 * i, 20:40] = 255
         Image.fromarray(img).save(poses / f"frame_{i}.png")
     return tmp_path
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's thread pools then wait for each other on these small
+    shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _argv(root, *extra):
@@ -71,9 +83,15 @@ def test_cli_writes_the_outputs_of_a_direct_generate(inputs, capsys):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("case,match", [("driving", "item 11"), ("face_opt", "item 9"),
-                                        ("onnx", "item 11")])
-def test_cli_options_not_ported_raise(inputs, case, match):
+# face optimisation (ROADMAP item 9) and the antelopev2 face model (11b) are
+# ported: those cases now run the same input; --driving_video_folder (11c)
+# still raises
+@pytest.mark.parametrize("case,match", [("driving", "item 11c"),
+                                        pytest.param("face_opt", None, id="face_opt-item 9"),
+                                        pytest.param("onnx", None, id="onnx-item 11")],
+                         ids=["driving-item 11", None, None])
+def test_cli_options_not_ported_raise(inputs, case, match, capsys, monkeypatch,
+                                      one_torch_thread):
     extra = []
     if case == "driving":
         argv = [a if a != "--pose_control_folder" else "--driving_video_folder"
@@ -81,15 +99,57 @@ def test_cli_options_not_ported_raise(inputs, case, match):
     else:
         argv = _argv(inputs)
     if case == "face_opt":
+        # without glintr100.onnx: warned and disabled, as in the JAX CLI
         extra = ["--face_optimize_steps", "2"]
     if case == "onnx":
-        antelope = inputs / "ckpt" / "antelopev2"
-        antelope.mkdir(parents=True)
-        for name in ("scrfd_10g_bnkps.onnx", "glintr100.onnx"):
-            (antelope / name).write_bytes(b"onnx")
-    with pytest.raises(NotImplementedError, match=match):
-        animate.main(argv + extra)
-    assert not (inputs / "out").exists()
+        from stableanimator_tpu_torch.preproc.standins import seeded_iresnet, write_antelopev2
+
+        write_antelopev2(str(inputs / "ckpt" / "antelopev2"),
+                         recogniser=seeded_iresnet(0, layers=(1, 1, 1, 1),
+                                                   widths=(8, 8, 16, 16), num_features=32))
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            animate.main(argv + extra)
+        assert not (inputs / "out").exists()
+        return
+    import stableanimator_tpu_torch.pipeline.animation as animation
+
+    embeddings = []
+
+    def spy(*args, **kw):                        # the identity embedding the CLI passes
+        embeddings.append(args[3].numpy())
+        return generate(*args, **kw)
+
+    monkeypatch.setattr(animation, "generate", spy)
+    info = animate.main(argv + extra)
+    out = capsys.readouterr().out
+    assert info["num_frames"] == N_FRAMES and not info["face_opt"]
+    assert len(os.listdir(inputs / "out" / "animated_images")) == N_FRAMES
+    if case == "face_opt":
+        assert "face optimization disabled" in out and "glintr100.onnx" in out
+        assert "zero identity embedding" in out and not np.any(embeddings[0])
+    else:
+        assert "zero identity embedding" not in out
+        assert embeddings[0].shape == (1, 32) and np.abs(embeddings[0]).max() > 0
+
+
+def test_cli_face_optimization_with_standin_antelopev2(inputs, capsys, one_torch_thread):
+    """--face_optimize_steps with the stand-in antelopev2 files: the face
+    model embeds the reference and every Euler step from
+    --face_opt_start_step runs the HJB refinement."""
+    from stableanimator_tpu_torch.preproc.standins import seeded_iresnet, write_antelopev2
+
+    write_antelopev2(str(inputs / "ckpt" / "antelopev2"),
+                     recogniser=seeded_iresnet(0, layers=(1, 1, 1, 1), widths=(8, 8, 16, 16),
+                                               num_features=32))
+    info = animate.main(_argv(inputs, "--face_optimize_steps", "1", "--face_opt_start_step",
+                              "1"))
+    out = capsys.readouterr().out
+    assert info["face_opt"] and "HJB face optimization: 1 steps/denoise-step" in out
+    assert "zero identity embedding" not in out and "disabled" not in out
+    frames = np.stack([np.asarray(Image.open(inputs / "out" / "animated_images" /
+                                             f"frame_{i}.png")) for i in range(N_FRAMES)])
+    assert frames.shape == (N_FRAMES, 64, 64, 3) and frames.std() > 1.0
 
 
 def test_utils_write_what_the_jax_package_writes(tmp_path, inputs):

@@ -52,6 +52,10 @@ def test_port_imports_no_jax():
                                             "stableanimator_tpu"))
         print(len(names), bad)
         assert len(names) >= 20, names
+        for mod in ("preproc.onnx_reader", "preproc.onnx_to_torch", "preproc.geometry",
+                    "preproc.face", "preproc.standins", "pipeline.face_opt", "cli.serve",
+                    "cli.extract_face_masks"):
+            assert "stableanimator_tpu_torch." + mod in names, mod
         assert not bad, bad
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -102,6 +106,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         animate.main(["--checkpoint_dir", "none", "--reference_image", "none",
                       "--pose_control_folder", "none", "--output_dir", "none"])
+    from stableanimator_tpu_torch.cli import extract_face_masks, serve
+    from stableanimator_tpu_torch.preproc import face, onnx_to_torch
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--checkpoint_dir", "none", "--allow_random_init"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_face_masks.main(["--image_folder", "none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        onnx_to_torch.load_onnx_function("none.onnx")
+    for cls in (face.FaceDetector, face.ArcFaceEncoder, face.FaceParser,
+                face.RetinaFaceDetector, face.LandmarkModel, face.GenderAgeModel):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls("none.onnx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        face.FaceModel("none.onnx", "none.onnx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        face.FaceAnalyzer("none")
 
 
 def _paths(tree, prefix=()):

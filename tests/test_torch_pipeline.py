@@ -104,13 +104,42 @@ def test_sequential_decode_matches_jax(micro):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+def _face_opt():
+    from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, FaceOptimizer
+
+    def arcface(pixels):                               # [N, 3, 112, 112] -> [N, 8]
+        n = pixels.shape[0]
+        return pixels.reshape(n, 3, 4, 28, 4, 28).mean(dim=(3, 5)).reshape(n, -1)[:, :8]
+
+    def decode(latents, num_frames):
+        x = torch.tanh(latents[..., :3])
+        return x.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
+
+    return FaceOptimizer(FaceOptConfig(steps=1, lr=0.5, start_step=0, latent_crop=4),
+                         arcface, decode, np.ones((8,), np.float32), np.zeros((4, 2), np.int32))
+
+
+# face_opt (ROADMAP item 9) is ported: the case that raised now runs; the
+# mesh (item 11d) still raises
 @pytest.mark.parametrize("kw,match", [
-    (dict(face_opt=object()), "item 9"),
-    (dict(mesh=object()), "item 11"),
+    pytest.param("face_opt", None, id="kw0-item 9"),
+    pytest.param(dict(mesh=object()), "item 11d", id="kw1-item 11"),
 ])
 def test_outside_the_slice_raises(micro, kw, match):
     _, _, pm = micro
     ref, pose, face = (torch.from_numpy(x) for x in _inputs(4, seed=0))
-    cfg = PipelineConfig(tile_size=4, tile_overlap=1)
+    cfg = PipelineConfig(tile_size=4, tile_overlap=1, num_inference_steps=2,
+                         decode_chunk_size=2)
+    if match is None:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)   # small shapes: other test workers hold the cores
+        try:
+            frames = generate(pm, ref, pose, face, cfg, device="cpu", face_opt=_face_opt())
+            plain = generate(pm, ref, pose, face, cfg, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+        assert frames.shape == (4, 64, 64, 3) and torch.isfinite(frames).all()
+        assert (frames - plain).abs().max() > 1e-6
+        return
     with pytest.raises(NotImplementedError, match=match):
         generate(pm, ref, pose, face, cfg, device="cpu", **kw)
