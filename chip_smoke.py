@@ -11,8 +11,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the L2 read rate (one sum over 32 reads of a 16 MB tensor, which L2
            holds)
   build    builds the flash-attention kernels (streamed forward, resident
-           forward, backward) from csrc/ with nvcc, one process per source,
-           in parallel; prints the ptxas report and, from cuobjdump -sass,
+           forward, backward) from csrc/ with nvcc and the skeleton raster
+           (csrc/raster.cpp) with g++, one process per source, in parallel
+           (a failed build fails the run); prints the ptxas report and, from cuobjdump -sass,
            the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
            d = 64 and d = 512 forwards, the resident forward and both
            backward kernels: fails on a spill in any of the three libraries,
@@ -50,6 +51,19 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            batch 16 against the module's forward and input gradient (within
            FACE_REL of their largest element), both timed beside the
            module; FaceModel's embedding of the reference image
+  dwpose   DWPose at full width: YOLOX-L and RTMPose-l stand-ins (seeded,
+           BatchNorm statistics from one pass over noise) exported with the
+           legacy exporter; the executor at YOLOX-L batch 16 (640x640) and
+           RTMPose-l batch 64 (384x288) against the modules (fp32, TF32 off,
+           within DWPOSE_REL of the largest output), parameters, FLOPs
+           (torch.utils.flop_counter) and times; the detector's peak memory
+           with the executor at batch 64 and 8 and with a local loop that
+           keeps every value (the executor before it freed values) at 8;
+           WholebodyDetector.video_poses on 16 seeded 512x512 frames against
+           the per-frame calls (boxes and keypoints within 1e-4, subsets
+           equal), boxes per frame and ms per frame by stage (letterbox,
+           detector network, decode + NMS, crops, pose network, render); a
+           micro-width pair on the card against the CPU
   generate full-width (SVD-XT, CLIP ViT-H, ...) 512x512x16f generate() with
            seeded weights: one warm-up request, one timed request; output
            shape / range and the kernel launch counts are asserted; the
@@ -78,7 +92,17 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            streamed launches (10 x 5 x steps and 4) and the 4 calls the
            resident kernel refuses (the VAE's d = 512) are asserted; then
            the same request at budget 0 (10 x 5 x steps + 4 streamed
-           launches, none resident or refused), and the two times' ratio
+           launches, none resident or refused), and the two times' ratio;
+           then the driving request: the CLI at 512x512 x 16 frames with
+           --driving_video_folder on 16 seeded raw frames and the
+           full-width DWPose stand-ins (the PoseWorker subprocess on the
+           card, overlapping the model build): exit, files, 10 x steps + 1
+           forward launches, pose renders not constant and the worker's
+           aligned flag asserted; extraction seconds, the part the overlap
+           hid, request seconds and the device's peak memory over both
+           processes printed; then cli.extract_skeleton on the same frames
+           and cli.extract_training_skeletons twice (the second writes
+           nothing)
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
            one warm-up step and three timed steps through make_train_step;
@@ -88,8 +112,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   profile  one more request and one more training step under
            torch.profiler: device time by kernel category, the busiest
            kernels, and the device's busy share
-The phases run in the order face, generate (with its profile, the A/B and
-faceopt), serve, longvideo, train.
+The phases run in the order face, dwpose, generate (with its profile, the
+A/B and faceopt), serve, longvideo (with the driving request), train.
 Before the last line it prints one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -237,8 +261,8 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # products of 2 B H Sq Sk d operations each kernel issues, P and dS fed to
 # the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
-ALL_PHASES = ("device", "build", "kernels", "small", "face", "generate", "faceopt", "serve",
-              "longvideo", "train", "profile")
+ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "faceopt",
+              "serve", "longvideo", "train", "profile")
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
@@ -290,6 +314,24 @@ FACE_BATCH, FACE_REL, FACE_REL64 = 16, 1e-4, 1e-9
 # the face-opt request: FaceOptConfig(steps=1) with the JAX package's other
 # defaults (lr 0.1, start step 8, crop 16) refines x0_hat at steps 8..24
 FACEOPT_START = 8
+# the dwpose phase: DWPose's networks at full width (YOLOX-L at batch 16 of
+# 640x640, RTMPose-l at batch 64 of 384x288; seeded stand-ins) through the
+# ONNX executor against their torch modules in fp32 with TF32 off, each
+# output within DWPOSE_REL of its largest element. Random weights at these
+# depths amplify rounding (on the CPU a 1e-6 relative nudge of the input
+# moves YOLOX-L's backbone output by ~5e-5), and the exporter folds each
+# BatchNorm into the convolution before it, so the file rounds otherwise than
+# the module; the module's own change under such a nudge is printed beside
+# the error
+DWPOSE_DET_BATCH, DWPOSE_POSE_BATCH, DWPOSE_REL = 16, 64, 1e-3
+# the detector's peak memory: the executor at MAX_FRAME_BATCH (64) and at
+# DWPOSE_BEFORE_BATCH, and a loop that keeps every value at DWPOSE_BEFORE_BATCH
+DWPOSE_BEFORE_BATCH = 8
+# the clip of the dwpose phase and of the driving request: 16 seeded
+# 512x512 noise frames; batched against per-frame calls, and the micro pair
+# (write_dwpose at depth 0.33, width 0.125) card against CPU: boxes and
+# keypoints within DWPOSE_TOL (rtol and atol), subsets equal
+DWPOSE_FRAMES, DWPOSE_HW, DWPOSE_TOL, DWPOSE_MICRO = 16, 512, 1e-4, (0.33, 0.125)
 
 
 def log(*args):
@@ -376,11 +418,15 @@ def _sass_counts(path, symbol: str) -> dict:
 def phase_build():
     from stableanimator_tpu_torch.ops import build
 
+    from stableanimator_tpu_torch.preproc import native_raster
+
     t0 = time.perf_counter()
-    sources = (FWD_KERNEL, RES_KERNEL, BWD_SOURCE)
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+    sources = (FWD_KERNEL, RES_KERNEL, BWD_SOURCE, native_raster.LIBRARY)
+    # one compiler per source (nvcc for the kernels, g++ for the raster)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(build.build_kernel, sources)))
-    log(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.1f} s; the skeleton raster "
+        f"{paths[native_raster.LIBRARY].name}, {paths[native_raster.LIBRARY].stat().st_size} bytes")
     for name, path in paths.items():
         log_file = path.with_suffix(".log")
         report = log_file.read_text() if log_file.exists() else ""
@@ -986,6 +1032,349 @@ def phase_longvideo(steps: int):
     return dict(resident, streamed=streamed)
 
 
+def _keep_every_value(fn, *inputs):
+    """The ONNX executor's node loop before it freed values: every value stays
+    in `env` until the call returns. The "before" of the executor that drops
+    each value after its last use."""
+    env = dict(fn.static_params)
+    env.update(fn.weights)
+    env.update(zip(fn.input_names, inputs))
+    for node in fn.graph.nodes:
+        outs = fn._exec(node, [env[i] if i else None for i in node.inputs])
+        for name, val in zip(node.outputs, outs if isinstance(outs, (list, tuple)) else [outs]):
+            if name:
+                env[name] = val
+    return [env[o] for o in fn.graph.outputs]
+
+
+def _peak_gib(fn) -> float:
+    """The most memory allocated while fn() runs (no grad) above what was
+    allocated before it, GiB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _noise_frames(n: int, hw: int, seed: int):
+    """`n` seeded uniform-noise RGB frames of hw x hw (the stand-in detector is
+    calibrated on noise, so a few of its anchors pass the thresholds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def _poses_close(got, want) -> bool:
+    import numpy as np
+
+    close = lambda a, b: a.shape == b.shape and np.allclose(a, b, rtol=DWPOSE_TOL,  # noqa: E731
+                                                            atol=DWPOSE_TOL)
+    return (np.array_equal(got["bodies"]["subset"], want["bodies"]["subset"])
+            and close(got["bodies"]["candidate"], want["bodies"]["candidate"])
+            and close(got["hands"], want["hands"]) and close(got["faces"], want["faces"]))
+
+
+def phase_dwpose(root: str) -> str:
+    """DWPose at full width on the card. The seeded YOLOX-L and RTMPose-l
+    stand-ins exported with the legacy exporter into `root`/DWPose; each
+    network through the ONNX executor against its module (fp32, TF32 off),
+    with its parameters, FLOPs and times; the detector's peak memory with the
+    executor at MAX_FRAME_BATCH and at DWPOSE_BEFORE_BATCH, and with a loop
+    that keeps every value at DWPOSE_BEFORE_BATCH; WholebodyDetector.
+    video_poses on a 16-frame clip against the per-frame calls, the boxes
+    per frame and the time per frame of each stage; a micro-width pair on the
+    card against the CPU. Returns the stand-ins' directory."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stableanimator_tpu_torch.preproc import standins
+    from stableanimator_tpu_torch.preproc.detection import PersonDetector, letterbox
+    from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+    from stableanimator_tpu_torch.preproc.skeleton_render import draw_pose
+    from stableanimator_tpu_torch.preproc.wholebody import WholebodyDetector
+
+    t0 = time.perf_counter()
+    modules = {"YOLOX-L": standins.seeded_yolox(0), "RTMPose-l": standins.seeded_rtmpose(0)}
+    directory = standins.write_dwpose(os.path.join(root, "DWPose"),
+                                      models=tuple(modules.values()))
+    paths = {"YOLOX-L": os.path.join(directory, "yolox_l.onnx"),
+             "RTMPose-l": os.path.join(directory, "dw-ll_ucoco_384.onnx")}
+    log(f"[dwpose] seeded, calibrated and exported the stand-ins in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{n} {os.path.getsize(p) / 2**20:.1f} MiB" for n, p in paths.items()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = {"YOLOX-L": torch.randint(0, 256, (DWPOSE_DET_BATCH, 3, 640, 640), generator=gen,
+                                       device="cuda").float(),
+              "RTMPose-l": torch.randn((DWPOSE_POSE_BATCH, 3, 384, 288), generator=gen,
+                                       device="cuda")}
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    for name, module in modules.items():
+        module.cuda()
+        x = inputs[name]
+        counter = FlopCounterMode(display=False)
+        with counter, torch.no_grad():
+            module(x[:1])
+        fn = load_onnx_function(paths[name], device="cuda")
+        with torch.no_grad():
+            got, want = fn(x), module(x)
+            want = want if isinstance(want, tuple) else (want,)
+            nudge = 1.0 + 1e-6 * torch.randn(x.shape, generator=gen, device="cuda")
+            nudged = module(x * nudge)
+            nudged = nudged if isinstance(nudged, tuple) else (nudged,)
+            err = max(rel(g, w) for g, w in zip(got, want))
+            sens = max(rel(n, w) for n, w in zip(nudged, want))
+            ms = {"executor": cuda_ms(lambda: fn(x), iters=5),
+                  "module": cuda_ms(lambda: module(x), iters=5)}
+        log(f"[dwpose] {name}: {sum(p.numel() for p in module.parameters()) / 1e6:.3f} M "
+            f"parameters, {counter.get_total_flops() / 1e9:.2f} GFLOP per image "
+            f"(torch.utils.flop_counter); executor ({len(fn.graph.nodes)} nodes) at batch "
+            f"{x.shape[0]}x{tuple(x.shape[1:])} against the module, fp32 TF32 off: outputs "
+            f"{[tuple(o.shape) for o in got]}, max|err| / max|out| {err:.2e} (tol {DWPOSE_REL}; "
+            f"the module's own change for a 1e-6 relative nudge of its input {sens:.2e}); "
+            f"executor {ms['executor']:.3f} ms, module {ms['module']:.3f} ms per batch")
+        if not err <= DWPOSE_REL:
+            raise SystemExit(f"the ONNX executor disagrees with the {name} module: {err:.2e}")
+        del module, fn, got, want, nudged
+    modules.clear()
+    inputs.clear()
+
+    fn = load_onnx_function(paths["YOLOX-L"], device="cuda")
+    produced = len({o for n in fn.graph.nodes for o in n.outputs if o})
+    big = torch.randint(0, 256, (PersonDetector.MAX_FRAME_BATCH, 3, 640, 640), generator=gen,
+                        device="cuda").float()
+    small = big[:DWPOSE_BEFORE_BATCH].clone()
+    peak = {f"executor, batch {PersonDetector.MAX_FRAME_BATCH}": _peak_gib(lambda: fn(big)),
+            f"executor, batch {DWPOSE_BEFORE_BATCH}": _peak_gib(lambda: fn(small)),
+            f"every value kept, batch {DWPOSE_BEFORE_BATCH}":
+                _peak_gib(lambda: _keep_every_value(fn, small))}
+    log(f"[dwpose] YOLOX-L detector's peak memory above its weights and input: "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
+        + f"; the executor holds at most {fn.peak_values} of the {produced} values it computes")
+    del fn, big, small
+    torch.cuda.empty_cache()
+
+    wb = WholebodyDetector(paths["YOLOX-L"], paths["RTMPose-l"], device="cuda")
+    frames = _noise_frames(DWPOSE_FRAMES, DWPOSE_HW, seed=1)
+    boxes = wb.detector.detect_batch(frames)
+    serial_boxes = [wb.detector(f) for f in frames]
+    batched = wb.video_poses(frames)
+    serial = [wb(f) for f in frames]
+    counts = [len(b) for b in boxes]
+    boxes_ok = all(b.shape == s.shape and np.allclose(b, s, rtol=DWPOSE_TOL, atol=DWPOSE_TOL)
+                   for b, s in zip(boxes, serial_boxes))
+    poses_ok = all(_poses_close(b, s) for b, s in zip(batched, serial))
+    # stage by stage, twice (the second is timed)
+    for _ in range(2):
+        t = [time.perf_counter()]
+        prepped = [letterbox(f, wb.detector.input_size) for f in frames]
+        batch = np.stack([p[0] for p in prepped])
+        t.append(time.perf_counter())
+        raw = wb.detector._fn(batch)                         # ends with the copy to the host
+        t.append(time.perf_counter())
+        stage_boxes = [wb.detector._postprocess(raw[i], prepped[i][1], 0.45, 0.1, 0.3)
+                       for i in range(len(frames))]
+        t.append(time.perf_counter())
+        crops = [c for f, b in zip(frames, stage_boxes) for c in wb.pose._prep(f, b)[0]]
+        t.append(time.perf_counter())
+        wb.pose._run_crops(crops)
+        t.append(time.perf_counter())
+        renders = [draw_pose(p, DWPOSE_HW, DWPOSE_HW) for p in batched]
+        t.append(time.perf_counter())
+    stage_ms = dict(zip(("letterbox", "detector network", "decode + NMS", "pose crops",
+                         "pose network", "render"),
+                        (1e3 * (b - a) / len(frames) for a, b in zip(t, t[1:]))))
+    candidates = [int(((r[:, 4:5] * r[:, 5:]) > 0.1).any(axis=1).sum()) for r in raw]
+    log(f"[dwpose] WholebodyDetector on {len(frames)} seeded {DWPOSE_HW}x{DWPOSE_HW} noise frames: "
+        f"anchors past score_thr 0.1 per frame {candidates}, person boxes per frame {counts}, "
+        f"{len(crops)} pose crops; detect_batch against per-frame calls {boxes_ok}, video_poses "
+        f"against per-frame calls {poses_ok} (within {DWPOSE_TOL}, subsets equal); ms per frame "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items())
+        + f"; renders mean {np.mean(renders):.3f}")
+    if not (boxes_ok and poses_ok):
+        raise SystemExit("the batched DWPose path disagrees with the per-frame calls")
+    if not (0 < sum(counts) and max(counts) <= PersonDetector.MAX_PERSONS_PER_FRAME):
+        raise SystemExit(f"the stand-in detector gave {counts} boxes per frame")
+    del wb
+    torch.cuda.empty_cache()
+
+    micro = standins.write_dwpose(os.path.join(root, "DWPose_micro"), depth=DWPOSE_MICRO[0],
+                                  width=DWPOSE_MICRO[1])
+    small_frames = _noise_frames(4, 256, seed=2)
+    poses = {dev: WholebodyDetector(os.path.join(micro, "yolox_l.onnx"),
+                                    os.path.join(micro, "dw-ll_ucoco_384.onnx"),
+                                    device=dev).video_poses(small_frames)
+             for dev in ("cpu", "cuda")}
+    micro_ok = all(_poses_close(g, w) for g, w in zip(poses["cuda"], poses["cpu"]))
+    log(f"[dwpose] micro stand-ins (depth {DWPOSE_MICRO[0]}, width {DWPOSE_MICRO[1]}), 4 frames "
+        f"256x256, video_poses on the card against the CPU: "
+        f"{[len(p['bodies']['subset']) for p in poses['cuda']]} bodies per frame, equal within "
+        f"{DWPOSE_TOL}: {micro_ok}")
+    if not micro_ok:
+        raise SystemExit("the micro DWPose pair on the card disagrees with the CPU")
+    return directory
+
+
+class _DevicePeak:
+    """The most device memory in use, all processes together
+    (torch.cuda.mem_get_info), sampled every 20 ms on a thread while the
+    block runs."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._done = 0, threading.Event()
+        self.before = self._used()
+
+        def sample():
+            while not self._done.wait(0.02):
+                self.peak = max(self.peak, self._used())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _used() -> int:
+        free, total = torch.cuda.mem_get_info()
+        return total - free
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._used())
+
+
+def phase_driving(steps: int, dwpose_dir: str) -> dict:
+    """`cli.animate.main` at the generate cell's configuration (512x512, 16
+    frames) on 16 seeded raw frames with --driving_video_folder and the
+    full-width DWPose stand-ins: the PoseWorker extracts on the card while
+    the models build. Exit, files, the plain request's forward launches,
+    pose renders that are not constant and the worker's aligned flag
+    asserted; extraction and request times and the device's peak memory
+    over both processes printed. Then both extract CLIs on the same frames,
+    the training one twice (the second writes nothing)."""
+    import numpy as np
+    from PIL import Image
+
+    import stableanimator_tpu_torch.pipeline.animation as animation
+    from stableanimator_tpu_torch.cli import (
+        animate,
+        extract_skeleton,
+        extract_training_skeletons,
+    )
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    hw, n = DWPOSE_HW, DWPOSE_FRAMES
+    seen = []
+    real_generate = animation.generate
+
+    def spy(models, ref, pose, *args, **kwargs):           # the pose frames the CLI passes
+        seen.append(pose.float())
+        return real_generate(models, ref, pose, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "reference.png")
+        Image.fromarray(np.random.default_rng(0).integers(0, 255, (hw, hw, 3), dtype=np.uint8)
+                        ).save(ref)
+        driving = os.path.join(tmp, "driving")
+        images = os.path.join(tmp, "data", "clip0", "images")
+        for folder in (driving, images):
+            os.makedirs(folder)
+            for i, frame in enumerate(_noise_frames(n, hw, seed=1)):
+                Image.fromarray(frame).save(os.path.join(folder, f"frame_{i}.png"))
+        out = os.path.join(tmp, "out")
+        argv = ["--checkpoint_dir", os.path.join(tmp, "nockpt"), "--reference_image", ref,
+                "--driving_video_folder", driving, "--dwpose_dir", dwpose_dir, "--output_dir", out,
+                "--height", str(hw), "--width", str(hw), "--num_inference_steps", str(steps),
+                "--allow_random_init", "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        animation.generate = spy
+        try:
+            with _DevicePeak() as device_peak:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(_Tee()) as printed:
+                    info = animate.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _launch_counts()
+        finally:
+            animation.generate = real_generate
+        names = sorted(os.listdir(os.path.join(out, "animated_images")))
+        frames = np.stack([np.asarray(Image.open(os.path.join(out, "animated_images", f)))
+                           for f in names])
+        with Image.open(os.path.join(out, "animation_video.gif")) as gif:
+            gif_frames = gif.n_frames
+        mp4_bytes = os.path.getsize(os.path.join(out, "animation_video.mp4"))
+        printed = printed.getvalue()
+        extraction = [ln for ln in printed.splitlines() if "DWPose extraction" in ln]
+
+        t0 = time.perf_counter()
+        written = extract_skeleton.main(["--target_image_folder_path", driving,
+                                         "--ref_image_path", ref, "--poses_folder_path",
+                                         os.path.join(tmp, "poses"), "--dwpose_dir", dwpose_dir,
+                                         "--device", "cuda"])
+        cli_sec = time.perf_counter() - t0
+        train_argv = ["--video_folder", os.path.join(tmp, "data"), "--dwpose_dir", dwpose_dir,
+                      "--device", "cuda"]
+        t0 = time.perf_counter()
+        first = extract_training_skeletons.main(train_argv)
+        train_sec = time.perf_counter() - t0
+        second = extract_training_skeletons.main(train_argv)
+        rerun_sec = time.perf_counter() - t0 - train_sec
+        pose_pngs = len(os.listdir(os.path.join(tmp, "poses")))
+        train_pngs = len(os.listdir(os.path.join(tmp, "data", "clip0", "poses")))
+    pose = seen[0] if seen else torch.zeros(1)
+    got = {k: counts["by_kernel"][k] for k in KERNELS}
+    want = 10 * steps + 1
+    pinfo = info.get("pose") or {}
+    log(f"[driving] cli {n} raw frames {hw}x{hw}, {steps} steps, DWPose in the worker subprocess "
+        f"on the card: extraction {pinfo.get('extract_seconds')} s in the worker, ready "
+        f"{pinfo.get('ready_seconds', float('nan')):.2f} s after the worker started, "
+        f"{pinfo.get('waited_seconds', float('nan')):.2f} s waited after the warm (hidden "
+        f"{pinfo.get('ready_seconds', 0) - pinfo.get('waited_seconds', 0):.2f} s); request "
+        f"{info['seconds']:.2f} s, {n / info['seconds']:.3f} frames/s; phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in info["phases"].items())
+        + f"; main() {wall:.1f} s in all; device memory in use, both processes: "
+        f"{device_peak.before / 2**30:.2f} GiB before, peak {device_peak.peak / 2**30:.2f} GiB "
+        f"(this process's allocator peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+        f"warm {info['warm']}; launches {got}; {extraction}; pose frames "
+        f"{tuple(pose.shape)} mean {pose.mean().item():.3f} std {pose.std().item():.3f}; "
+        f"{len(names)} PNGs {frames.shape} mean {frames.mean():.3f} std {frames.std():.3f}; "
+        f"gif {gif_frames} frames, mp4 {mp4_bytes} bytes")
+    log(f"[driving] extract_skeleton: {written} poses ({pose_pngs} PNGs) in {cli_sec:.1f} s; "
+        f"extract_training_skeletons: {first} then {second} written ({train_pngs} PNGs) in "
+        f"{train_sec:.1f} s and {rerun_sec:.1f} s")
+    checks = {
+        f"{n} PNGs of {hw}x{hw}x3": frames.shape == (n, hw, hw, 3),
+        f"gif of {n} frames, mp4 written": gif_frames == n and mp4_bytes > 0,
+        "frames not constant": frames.std() > 1.0,
+        f"{want} forward launches": got[FWD_KERNEL] == want and got[RES_KERNEL] == 0,
+        "no backward launches": got[DKV_KERNEL] == got[DQ_KERNEL] == 0,
+        "pose renders not constant": tuple(pose.shape) == (n, hw, hw, 3)
+        and pose.std().item() > 0.0 and pose.std(dim=0).mean().item() > 0.0,
+        "the worker's aligned flag printed": len(extraction) == 1 and "aligned" in extraction[0]
+        and "aligned" in pinfo,
+        f"extract_skeleton wrote {n}": written == pose_pngs == n,
+        f"extract_training_skeletons wrote {n}, then none": (first, second, train_pngs) == (n, 0, n),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the driving-video request failed its checks: {failed}")
+    return dict(seconds=info["seconds"], wall=wall, pose=pinfo, device_peak_gib=device_peak.peak
+                / 2**30, **counts)
+
+
 def _u8(x: torch.Tensor):
     """[..., 3] pixels in [0, 1] on any device -> uint8 numpy."""
     return (x.float() * 255.0 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
@@ -1589,7 +1978,7 @@ def main() -> int:
     # train run the default route
     os.environ.pop(RESIDENT_BUDGET_ENV, None)
     t_start = time.perf_counter()
-    standins = tempfile.mkdtemp(prefix="chip_smoke_antelopev2_")   # the face phases' files
+    standins = tempfile.mkdtemp(prefix="chip_smoke_standins_")   # the ONNX stand-ins' files
     try:
         return _run(phases, args.steps, t_start, standins)
     finally:
@@ -1609,6 +1998,10 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         phase_small()
     if {"face", "faceopt", "serve"} & set(phases):
         face = phase_face(standins)
+    dwpose = None
+    if "dwpose" in phases:
+        dwpose = phase_dwpose(standins)
+        torch.cuda.empty_cache()
     if "generate" in phases:
         gen, state, plain_frames = phase_generate(steps)
         if "profile" in phases:
@@ -1625,6 +2018,12 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         torch.cuda.empty_cache()
     if "longvideo" in phases:
         longvideo = phase_longvideo(steps)
+        torch.cuda.empty_cache()
+        if dwpose is None:
+            from stableanimator_tpu_torch.preproc.standins import write_dwpose
+
+            dwpose = write_dwpose(os.path.join(standins, "DWPose"))
+        phase_driving(steps, dwpose)
         torch.cuda.empty_cache()
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()

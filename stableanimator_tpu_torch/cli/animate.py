@@ -22,11 +22,16 @@ Missing files keep seeded random weights with --allow_random_init.
                       embedding is zero and face optimisation is off, as in
                       the JAX package.
 
+  DWPose/yolox_l.onnx + dw-ll_ucoco_384.onnx (or --dwpose_dir)
+                      the skeleton extractor of --driving_video_folder: raw
+                      frames in, DWPose run in a worker subprocess on the
+                      same device (`preproc/pose_worker.py`) while the models
+                      build and the kernels warm, its renders aligned to the
+                      reference's body and channel-reversed as the
+                      two-script flow stores them.
+
 The noise is drawn from a torch.Generator on the device seeded --seed, so a
 run does not reproduce the JAX package's jax.random noise for the same seed.
-
-Not ported yet, and raising NotImplementedError with the ROADMAP item that
-brings it: --driving_video_folder (inline DWPose, queue 1 item 11c).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def parse_args(argv=None):
                         "extraction CLI first)")
     p.add_argument("--driving_video_folder", type=str, default=None,
                    help="folder of RAW driving frames for inline DWPose "
-                        "extraction (not ported yet: ROADMAP queue 1 item 11c)")
+                        "skeleton extraction")
     p.add_argument("--dwpose_dir", type=str, default=None,
                    help="dir with yolox_l.onnx + dw-ll_ucoco_384.onnx "
                         "(default: <checkpoint_dir>/DWPose)")
@@ -106,14 +111,52 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    """Raise for the options the port does not cover yet."""
+def _check_pose_source(args) -> None:
     if bool(args.pose_control_folder) == bool(args.driving_video_folder):
         raise SystemExit("pass exactly one of --pose_control_folder (pre-rendered "
                          "skeletons) or --driving_video_folder (raw frames)")
-    if args.driving_video_folder:
-        raise NotImplementedError("--driving_video_folder (inline DWPose extraction) is not "
-                                  "ported yet: ROADMAP queue 1 item 11c")
+
+
+def _start_extraction(args, ref_u8: np.ndarray, device):
+    """Start a PoseWorker on `device` on the driving frames (resized to the
+    output size) and ship the extraction; returns (worker, join)."""
+    from stableanimator_tpu_torch.preproc.pose_worker import PoseWorker
+    from stableanimator_tpu_torch.utils.image import load_images_from_folder
+
+    dwpose_dir = args.dwpose_dir or os.path.join(args.checkpoint_dir, "DWPose")
+    det = os.path.join(dwpose_dir, "yolox_l.onnx")
+    pose = os.path.join(dwpose_dir, "dw-ll_ucoco_384.onnx")
+    if not (os.path.exists(det) and os.path.exists(pose)):
+        raise SystemExit(f"--driving_video_folder needs yolox_l.onnx + dw-ll_ucoco_384.onnx "
+                         f"in {dwpose_dir}")
+    driving = np.stack([np.asarray(im) for im in load_images_from_folder(
+        args.driving_video_folder, width=args.width, height=args.height)])
+    worker = PoseWorker(det, pose, max_det=args.max_persons, device=str(device))
+    try:
+        return worker, worker.extract_async(driving, ref_u8, args.height, args.width)
+    except BaseException:
+        worker.close()
+        raise
+
+
+def _join_extraction(join, t_start: float):
+    """Wait for the worker's renders -> (pose_u8 [F, H, W, 3], timings). The
+    renders are channel-reversed: the two-script flow stores them with the
+    BGR write convention and loads them back as RGB, so the checkpoints'
+    conditioning saw the reversed render."""
+    t_wait = time.time()
+    maps, ack = join()
+    waited = time.time() - t_wait
+    ready = time.time() - t_start
+    if not ack["aligned"]:
+        print("WARNING: no 18-joint bodies detected; skeletons rendered without reference "
+              "alignment")
+    pose_u8 = np.ascontiguousarray(np.transpose(maps, (0, 2, 3, 1))[..., ::-1]).astype(np.uint8)
+    print(f"DWPose extraction (worker subprocess): {pose_u8.shape[0]} frames, aligned "
+          f"{ack['aligned']}, {ack['seconds']:.2f}s of extraction, ready {ready:.1f}s after "
+          f"the worker started ({waited:.1f}s waited, the rest overlapped)")
+    return pose_u8, {"extract_seconds": ack["seconds"], "ready_seconds": ready,
+                     "waited_seconds": waited, "aligned": ack["aligned"]}
 
 
 def reference_embedding(checkpoint_dir: str, ref_rgb: np.ndarray, channel_order: str,
@@ -139,20 +182,14 @@ def reference_embedding(checkpoint_dir: str, ref_rgb: np.ndarray, channel_order:
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"num_frames", "seconds", "phases", "warm",
-    "face_opt" (whether the request ran the HJB face optimisation)}."""
+    "face_opt" (whether the request ran the HJB face optimisation), "pose"
+    (the inline extraction's timings and alignment, or None)}."""
     args = parse_args(argv)
-    _check_ported(args)
+    _check_pose_source(args)
 
     from PIL import Image
 
-    from stableanimator_tpu_torch.convert.checkpoints import load_state_dicts
-    from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
-    from stableanimator_tpu_torch.pipeline.animation import (
-        build_models,
-        generate,
-        resolve_device,
-        warm_generate,
-    )
+    from stableanimator_tpu_torch.pipeline.animation import generate, resolve_device
     from stableanimator_tpu_torch.utils.image import (
         export_to_gif,
         export_to_mp4,
@@ -164,6 +201,77 @@ def main(argv=None) -> dict:
     )
 
     device = resolve_device(args.device)
+    ref_pil = Image.open(args.reference_image).convert("RGB")
+    ref_pil_sized = ref_pil.resize((args.width, args.height))
+    # the frame count from the listing alone, so the warm starts before any
+    # pose pixel is read
+    src_folder = args.pose_control_folder or args.driving_video_folder
+    num_frames = len([f for f in os.listdir(src_folder) if f.endswith(".png")])
+    if num_frames == 0:
+        raise SystemExit(f"no .png frames in {src_folder}")
+    print(f"{num_frames} frames at {args.width}x{args.height}")
+
+    # inline DWPose: the worker process extracts while this one builds the
+    # models and warms the kernels
+    worker = None
+    if args.driving_video_folder:
+        t_pose = time.time()
+        worker, pose_join = _start_extraction(args, np.asarray(ref_pil_sized), device)
+
+    def load_poses():
+        """The pose frames [F, H, W, 3] uint8 and the extraction's timings
+        (None for pre-rendered skeletons)."""
+        if worker is None:
+            return poses_to_u8_array(load_images_from_folder(
+                args.pose_control_folder, width=args.width, height=args.height)), None
+        return _join_extraction(pose_join, t_pose)
+
+    try:
+        models, cfg, emb, face_opt, warm_info, pose_u8, pose_info = _prepare(
+            args, device, ref_pil, num_frames, load_poses)
+    finally:
+        if worker is not None:
+            worker.close()
+
+    timings: dict = {}
+    t0 = time.time()
+    frames = generate(
+        models, torch.tensor(pil_to_u8_array(ref_pil_sized)), torch.from_numpy(pose_u8),
+        torch.from_numpy(emb), cfg,
+        # CLIP conditions on the original-resolution image (reference
+        # inference_pipeline_animation.py:520)
+        clip_image=torch.tensor(pil_to_u8_array(ref_pil)),
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        face_opt=face_opt, device=device, timings=timings,
+        progress=lambda done, total: print(f"  denoise step {done}/{total} dispatched",
+                                           flush=True))
+    frames = frames.cpu().numpy()
+    seconds = time.time() - t0
+    print(f"generated {num_frames} frames in {seconds:.1f}s ("
+          + ", ".join(f"{k} {v:.2f}s" for k, v in timings.items()) + ")")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    u8 = frames_to_uint8(frames)
+    export_to_gif(u8, os.path.join(args.output_dir, "animation_video.gif"))
+    # the reference names its artifact animation_video.mp4 and writes it at
+    # 8 fps (inference_basic.py:560-562)
+    export_to_mp4(u8, os.path.join(args.output_dir, "animation_video.mp4"), fps=8)
+    save_frames_as_png(u8, os.path.join(args.output_dir, "animated_images"))
+    print(f"wrote {args.output_dir}/animation_video.{{gif,mp4}}")
+    return {"num_frames": num_frames, "seconds": seconds, "phases": timings,
+            "warm": {k: v for k, v in warm_info.items() if k != "error"},
+            "face_opt": face_opt is not None, "pose": pose_info}
+
+
+def _prepare(args, device, ref_pil, num_frames: int, load_poses):
+    """Models, config, identity embedding and face optimiser, then the warm
+    (kernel builds) on a thread while `load_poses()` reads the skeleton PNGs
+    or waits for the extraction worker. Returns (models, cfg, emb, face_opt,
+    warm_info, pose_u8, pose_info)."""
+    from stableanimator_tpu_torch.convert.checkpoints import load_state_dicts
+    from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import build_models, warm_generate
+
     model_kwargs = dict(dtype=torch.bfloat16, device=device)
     if args.model_scale == "micro":
         # the .npz checkpoints are full-size; micro is for smoke runs
@@ -171,15 +279,6 @@ def main(argv=None) -> dict:
     models = build_models(**model_kwargs)
     load_state_dicts(args.checkpoint_dir, models, args.allow_random_init,
                      init_id_adapter=args.init_id_adapter)
-
-    ref_pil = Image.open(args.reference_image).convert("RGB")
-    ref_pil_sized = ref_pil.resize((args.width, args.height))
-    # the frame count from the listing alone, so the warm starts before any
-    # pose pixel is read
-    num_frames = len([f for f in os.listdir(args.pose_control_folder) if f.endswith(".png")])
-    if num_frames == 0:
-        raise SystemExit(f"no .png frames in {args.pose_control_folder}")
-    print(f"{num_frames} frames at {args.width}x{args.height}")
 
     cfg = PipelineConfig(
         height=args.height, width=args.width, num_frames=num_frames,
@@ -234,8 +333,9 @@ def main(argv=None) -> dict:
             print(f"HJB face optimization: {focfg.steps} steps/denoise-step, lr={focfg.lr}, "
                   f"from denoise step {focfg.start_step}")
 
-    # the warm (kernel builds) on a thread while the pose PNGs load; it
-    # executes nothing, so the request's kernel launches are its own
+    # the warm (kernel builds) on a thread while the poses load or are
+    # extracted; it executes nothing, so the request's kernel launches are
+    # its own
     warm_info: dict = {}
 
     def _warm():
@@ -250,9 +350,10 @@ def main(argv=None) -> dict:
 
     warm_thread = threading.Thread(target=_warm, daemon=True)
     warm_thread.start()
-    pose_u8 = poses_to_u8_array(load_images_from_folder(args.pose_control_folder,
-                                                        width=args.width, height=args.height))
-    warm_thread.join()
+    try:
+        pose_u8, pose_info = load_poses()
+    finally:
+        warm_thread.join()
     if "error" in warm_info:
         raise warm_info["error"]
     print(f"graph warm: {warm_info['path']} path, {warm_info['programs']} program(s) in "
@@ -264,35 +365,7 @@ def main(argv=None) -> dict:
         face_opt = face_opt.with_boxes(face_boxes_from_pose_renders(
             pose_u8.astype(np.float32) / 127.5 - 1.0, args.height // 8, args.width // 8,
             face_opt.cfg.latent_crop))
-
-    timings: dict = {}
-    t0 = time.time()
-    frames = generate(
-        models, torch.tensor(pil_to_u8_array(ref_pil_sized)), torch.from_numpy(pose_u8),
-        torch.from_numpy(emb), cfg,
-        # CLIP conditions on the original-resolution image (reference
-        # inference_pipeline_animation.py:520)
-        clip_image=torch.tensor(pil_to_u8_array(ref_pil)),
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-        face_opt=face_opt, device=device, timings=timings,
-        progress=lambda done, total: print(f"  denoise step {done}/{total} dispatched",
-                                           flush=True))
-    frames = frames.cpu().numpy()
-    seconds = time.time() - t0
-    print(f"generated {num_frames} frames in {seconds:.1f}s ("
-          + ", ".join(f"{k} {v:.2f}s" for k, v in timings.items()) + ")")
-
-    os.makedirs(args.output_dir, exist_ok=True)
-    u8 = frames_to_uint8(frames)
-    export_to_gif(u8, os.path.join(args.output_dir, "animation_video.gif"))
-    # the reference names its artifact animation_video.mp4 and writes it at
-    # 8 fps (inference_basic.py:560-562)
-    export_to_mp4(u8, os.path.join(args.output_dir, "animation_video.mp4"), fps=8)
-    save_frames_as_png(u8, os.path.join(args.output_dir, "animated_images"))
-    print(f"wrote {args.output_dir}/animation_video.{{gif,mp4}}")
-    return {"num_frames": num_frames, "seconds": seconds, "phases": timings,
-            "warm": {k: v for k, v in warm_info.items() if k != "error"},
-            "face_opt": face_opt is not None}
+    return models, cfg, emb, face_opt, warm_info, pose_u8, pose_info
 
 
 if __name__ == "__main__":

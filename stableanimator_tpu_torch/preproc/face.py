@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from stableanimator_tpu_torch.preproc.detection import nms_single_class
 from stableanimator_tpu_torch.preproc.geometry import (
     fill_rect,
     invert_affine,
@@ -62,26 +63,6 @@ def norm_crop(img: np.ndarray, landmarks5: np.ndarray, size: int = 112) -> np.nd
     m = umeyama_similarity(landmarks5.astype(np.float64),
                            ARCFACE_DST * (size / 112.0))
     return warp_affine(img, m, (size, size), border_value=0.0)
-
-
-def nms_single_class(boxes: np.ndarray, scores: np.ndarray, thr: float):
-    """Greedy NMS (reference onnxdet.py:6-33; +1 area convention preserved);
-    a copy of the JAX package's `preproc/detection.py::nms_single_class`."""
-    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
-    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
-    order = scores.argsort()[::-1]
-    keep = []
-    while order.size > 0:
-        i = order[0]
-        keep.append(i)
-        xx1 = np.maximum(x1[i], x1[order[1:]])
-        yy1 = np.maximum(y1[i], y1[order[1:]])
-        xx2 = np.minimum(x2[i], x2[order[1:]])
-        yy2 = np.minimum(y2[i], y2[order[1:]])
-        inter = np.maximum(0.0, xx2 - xx1 + 1) * np.maximum(0.0, yy2 - yy1 + 1)
-        iou = inter / (areas[i] + areas[order[1:]] - inter)
-        order = order[np.where(iou <= thr)[0] + 1]
-    return keep
 
 
 def _numpy(x) -> np.ndarray:

@@ -379,7 +379,14 @@ class OnnxFunction:
     from the load on (`self.weights`). Inputs may be tensors (used where
     they are) or numpy arrays (moved to `device`). Outputs are tensors,
     or numpy arrays where the graph computed them from host values only
-    (e.g. a Shape)."""
+    (e.g. a Shape).
+
+    A call holds each value only until the last node that reads it has run
+    (graph outputs until the end): `self.release[i]` names the values that
+    node i reads or writes last, worked out at load. Autograd keeps the
+    tensors a backward needs by its own references. `self.peak_values` is
+    the most computed values (inputs and node outputs) held at once in the
+    last call."""
 
     def __init__(self, graph: Graph, device: torch.device | str = "cuda"):
         from stableanimator_tpu_torch.pipeline.animation import resolve_device
@@ -392,22 +399,37 @@ class OnnxFunction:
             if v.dtype in (np.int64, np.int32, np.bool_) or v.size <= 64}
         self.weights = {k: _tensor(v, self.device) for k, v in graph.initializers.items()
                         if k not in self.static_params}
+        last: Dict[str, int] = {}
+        for i, node in enumerate(graph.nodes):
+            for name in list(node.inputs) + list(node.outputs):
+                if name and name not in graph.initializers:
+                    last[name] = i
+        self.release = [[] for _ in graph.nodes]
+        for name, i in last.items():
+            if name not in graph.outputs:
+                self.release[i].append(name)
+        self.peak_values = 0
 
     def __call__(self, *inputs, _weights=None):
-        env: Dict[str, Any] = {}
-        env.update(self.static_params)
-        env.update(self.weights if _weights is None else _weights)
-        for name, x in zip(self.input_names, inputs):
-            env[name] = _tensor(x, self.device)
-        for node in self.graph.nodes:
-            args = [env[i] if i else None for i in node.inputs]
+        params = dict(self.static_params)
+        params.update(self.weights if _weights is None else _weights)
+        env: Dict[str, Any] = {name: _tensor(x, self.device)
+                               for name, x in zip(self.input_names, inputs)}
+        peak = len(env)
+        for node, release in zip(self.graph.nodes, self.release):
+            args = [(env[i] if i in env else params[i]) if i else None for i in node.inputs]
             outs = self._exec(node, args)
             if not isinstance(outs, (list, tuple)):
                 outs = [outs]
             for name, val in zip(node.outputs, outs):
                 if name:
                     env[name] = val
-        return [env[o] for o in self.graph.outputs]
+            del args, outs
+            peak = max(peak, len(env))
+            for name in release:
+                env.pop(name, None)
+        self.peak_values = peak
+        return [env[o] if o in env else params[o] for o in self.graph.outputs]
 
     # -- single-node dispatch ------------------------------------------------
 

@@ -1,9 +1,9 @@
 """The port's inference CLI (`stableanimator_tpu_torch.cli.animate`) on the
 CPU, at the micro scale and 64x64 with seeded random weights: the files it
 writes, its frames against a direct `generate` with the same seed, the
-options not ported yet, the face model and face optimisation with stand-in
-antelopev2 files, and the port's `utils` against the JAX package's (byte
-for byte).
+driving-video path (DWPose stand-ins in the worker subprocess), the face
+model and face optimisation with stand-in antelopev2 files, and the port's
+`utils` against the JAX package's (byte for byte).
 """
 
 import os
@@ -83,10 +83,9 @@ def test_cli_writes_the_outputs_of_a_direct_generate(inputs, capsys):
     np.testing.assert_array_equal(got, want)
 
 
-# face optimisation (ROADMAP item 9) and the antelopev2 face model (11b) are
-# ported: those cases now run the same input; --driving_video_folder (11c)
-# still raises
-@pytest.mark.parametrize("case,match", [("driving", "item 11c"),
+# face optimisation (ROADMAP item 9), the antelopev2 face model (11b) and
+# --driving_video_folder (11c) are ported: each case now runs
+@pytest.mark.parametrize("case,match", [("driving", None),
                                         pytest.param("face_opt", None, id="face_opt-item 9"),
                                         pytest.param("onnx", None, id="onnx-item 11")],
                          ids=["driving-item 11", None, None])
@@ -94,10 +93,32 @@ def test_cli_options_not_ported_raise(inputs, case, match, capsys, monkeypatch,
                                       one_torch_thread):
     extra = []
     if case == "driving":
-        argv = [a if a != "--pose_control_folder" else "--driving_video_folder"
+        # the JAX package's test_animate_cli_driving_video_inline_dwpose: 4 raw
+        # frames, DWPose stand-ins extracted in the worker subprocess on the CPU
+        from tests.test_torch_dwpose import write_cli_standins
+
+        write_cli_standins(inputs / "ckpt" / "DWPose")
+        rng = np.random.default_rng(1)
+        (inputs / "driving").mkdir()
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)).save(
+                inputs / "driving" / f"frame_{i}.png")
+        argv = [str(inputs / "driving") if a == str(inputs / "poses") else
+                "--driving_video_folder" if a == "--pose_control_folder" else a
                 for a in _argv(inputs)]
-    else:
-        argv = _argv(inputs)
+        info = animate.main(argv)
+        out = capsys.readouterr().out
+        assert info["num_frames"] == 4 and info["pose"]["aligned"]
+        assert "DWPose extraction (worker subprocess): 4 frames, aligned True" in out
+        assert "WARNING: no 18-joint bodies" not in out
+        pngs = sorted(os.listdir(inputs / "out" / "animated_images"))
+        assert pngs == [f"frame_{i}.png" for i in range(4)]
+        assert (inputs / "out" / "animation_video.mp4").stat().st_size > 0
+        frames = np.stack([np.asarray(Image.open(inputs / "out" / "animated_images" / n))
+                           for n in pngs])
+        assert frames.shape == (4, 64, 64, 3) and frames.std() > 0
+        return
+    argv = _argv(inputs)
     if case == "face_opt":
         # without glintr100.onnx: warned and disabled, as in the JAX CLI
         extra = ["--face_optimize_steps", "2"]

@@ -64,3 +64,20 @@ def test_build_kernel_reuses_a_built_library_without_nvcc(csrc, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     with pytest.raises(AssertionError, match="nvcc was called"):
         build.build_kernel("flash_attention_fwd")
+
+
+def test_the_raster_builds_with_gxx_and_its_own_flags(csrc, monkeypatch):
+    """csrc/raster.cpp (no .cu of that name) takes g++ and GXX_FLAGS: its name
+    follows those flags, not nvcc's, and the build calls no nvcc."""
+    before = build.library_path("raster")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("raster") == before
+    monkeypatch.setattr(build, "GXX_FLAGS", build.GXX_FLAGS + ("-g",))
+    assert build.library_path("raster") != before
+
+    def no_nvcc():
+        raise AssertionError("nvcc was called for the C++ raster")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    out = build.build_kernel("raster")
+    assert out == build.library_path("raster") and out.stat().st_size > 0

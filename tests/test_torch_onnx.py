@@ -318,6 +318,17 @@ OPS = RESIZE + [
     ("pow_sign_recip", "Pow", {}, [_r(120, 3, 4, lo=0.1, hi=2), _F(1.5)]),
     ("global_avg_pool", "GlobalAveragePool", {}, [_r(121, 2, 3, 4, 5)]),
     ("prelu", "PRelu", {}, [_r(122, 2, 3, 4), _r(123, 3)]),
+    # the node forms of the DWPose stand-ins (preproc/standins.py): RTMPose's
+    # ScaleNorm clamp, channel attention, GAU split / unbind, YOLOX's upsample
+    ("clip_min_only", "Clip", {}, [_r(130, 3, 4), _F(0.1), None]),
+    ("hard_sigmoid_sixth", "HardSigmoid", {"alpha": 1.0 / 6.0}, [_r(131, 3, 4, lo=-5, hi=5)]),
+    ("reduce_l2_last_keep", "ReduceL2", {"axes": [-1], "keepdims": 1}, [_r(132, 2, 5, 7)]),
+    ("split_sizes_input", "Split", {"axis": 2}, [_r(133, 2, 3, 10), _I(4, 4, 2)]),
+    ("squeeze_axes_input", "Squeeze", {}, [_r(134, 2, 1, 3), _I(1)]),
+    ("unsqueeze_axes_input", "Unsqueeze", {}, [_r(135, 2, 3), _I(2)]),
+    ("resize_nearest_str_attrs", "Resize",
+     {"mode": "nearest", "coordinate_transformation_mode": "asymmetric", "nearest_mode": "floor"},
+     [_r(136, 1, 2, 3, 4), _NONE, _F(1, 1, 2, 2)]),
 ]
 
 

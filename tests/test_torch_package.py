@@ -1,6 +1,6 @@
 """Guards of the PyTorch port (`stableanimator_tpu_torch`):
 
-  (a) the port and chip_smoke.py load no jax, flax, optax, orbax or
+  (a) the port and chip_smoke.py load no jax, flax, optax, orbax, cv2 or
       JAX-package module;
   (b) its entry points default to CUDA and raise without it, unless the
       caller asks for the CPU;
@@ -49,12 +49,16 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                            "stableanimator_tpu"))
+                                            "stableanimator_tpu", "cv2"))
         print(len(names), bad)
         assert len(names) >= 20, names
         for mod in ("preproc.onnx_reader", "preproc.onnx_to_torch", "preproc.geometry",
                     "preproc.face", "preproc.standins", "pipeline.face_opt", "cli.serve",
-                    "cli.extract_face_masks"):
+                    "cli.extract_face_masks", "preproc.detection", "preproc.pose_estimation",
+                    "preproc.wholebody", "preproc.native_raster", "preproc.skeleton_render",
+                    "preproc.skeleton_extraction", "preproc.pose_worker",
+                    "preproc.legacy_detectors", "cli.extract_skeleton",
+                    "cli.extract_training_skeletons"):
             assert "stableanimator_tpu_torch." + mod in names, mod
         assert not bad, bad
     """)
@@ -123,6 +127,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         face.FaceModel("none.onnx", "none.onnx")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         face.FaceAnalyzer("none")
+    from stableanimator_tpu_torch.cli import extract_skeleton, extract_training_skeletons
+    from stableanimator_tpu_torch.preproc import (
+        detection,
+        legacy_detectors,
+        pose_estimation,
+        wholebody,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animate.main(["--checkpoint_dir", "none", "--reference_image", "none",
+                      "--driving_video_folder", "none", "--output_dir", "none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_skeleton.main(["--target_image_folder_path", "none", "--ref_image_path", "none",
+                               "--poses_folder_path", "none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_training_skeletons.main(["--video_folder", "none"])
+    for cls in (detection.PersonDetector, pose_estimation.PoseEstimator):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls("none.onnx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wholebody.WholebodyDetector("none.onnx", "none.onnx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        legacy_detectors.DWposeDetector("none.onnx", "none.onnx")
 
 
 def _paths(tree, prefix=()):
