@@ -112,8 +112,28 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
   profile  one more request and one more training step under
            torch.profiler: device time by kernel category, the busiest
            kernels, and the device's busy share
+  parallel the (data, frame) mesh on torch.distributed over NCCL in a world of
+           one process (`make_mesh()`; the machine has one card): NCCL's
+           all_reduce, all_gather and all_to_all_single on the mesh's groups;
+           the generate phase's request through generate(mesh=), its frames
+           against the generate phase's (bound PARALLEL_FRAMES_ATOL), 251
+           launches asserted, timed beside a plain request; one full-width
+           training step through make_train_step(mesh=) with ZeRO-1 beside
+           two one-device steps on the same batch, noises and seed (loss and
+           grad_norm within their run-to-run spread), time and peak memory;
+           ZeRO-1's optimizer bytes per rank at data 1, 2, 4, 8 (reckoned);
+           then the process group is destroyed and the training CLI runs
+           under torchrun (one process) for 2 micro steps and a resume
+  quant    the int8 path (W8A8, build_models(quant=True)): int8_dense on the
+           card against the fp32 product (tests/test_ops.py's bounds) and
+           its int8 weights against the CPU's; a micro quant generate card vs
+           CPU; the full-width request built with quant=True from the same
+           seed, warm-up and timed, 251 launches, frames finite in [0, 1],
+           their difference from the bf16 request's printed; with profile,
+           one quant request under the profiler
 The phases run in the order face, dwpose, generate (with its profile, the
-A/B and faceopt), serve, longvideo (with the driving request), train.
+A/B, faceopt, parallel and quant), serve, longvideo (with the driving
+request), train.
 Before the last line it prints one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -262,7 +282,22 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
 ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "faceopt",
-              "serve", "longvideo", "train", "profile")
+              "parallel", "quant", "serve", "longvideo", "train", "profile")
+# the parallel phase: the world-of-one mesh request runs the plain request's
+# kernels in the same order on the same inputs, so its frames must equal the
+# generate phase's exactly; the mesh training step's loss and grad_norm must
+# lie within the one-device step's run-to-run spread (two fresh states, the
+# same batch, noises and seed), measured in the run: 0 on an H100 80GB HBM3
+# at 700 W (the bf16 step is deterministic there), so the bound is floored
+# at PARALLEL_SPREAD_FLOOR of the value, a few fp32 roundings, in case a
+# kernel ever sums in another order
+PARALLEL_FRAMES_ATOL, PARALLEL_SPREAD_FLOOR = 0.0, 1e-6
+# the quant phase's micro generate, card vs CPU: the int8 path is
+# discontinuous (an activation on a rounding boundary moves by one int8
+# step, and the next layers' inputs with it), so the bound is not rounding:
+# on the CPU the same micro quant generate at 1 and 8 threads differs by
+# mean 1.0e-2, max 0.12, corrcoef 0.9978 (the plain one by 2.8e-5, 4.3e-4)
+SMALL_QUANT_MEAN, SMALL_QUANT_CORR = 3e-2, 0.99
 # device kernels by name, for the profile's breakdown (first match wins)
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
@@ -1901,16 +1936,308 @@ def profile_generate(models, cfg, ref, pose, face):
              lambda: generate(models, ref, pose, face, cfg, device="cuda"))
 
 
-def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None) -> list:
+# ---------------------------------------------------------------------------
+# parallel and quant (the (data, frame) mesh on torch.distributed, the int8
+# path)
+# ---------------------------------------------------------------------------
+
+def _nccl_check(mesh):
+    """all_reduce, all_gather and all_to_all_single over the mesh's groups
+    on a card tensor: NCCL takes them in this world (of one rank, each the
+    identity)."""
+    import torch.distributed as dist
+
+    x = torch.arange(8.0, device="cuda")
+    for axis in ("data", "frame"):
+        group = mesh.group(axis)
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        z = torch.empty_like(x)
+        dist.all_to_all_single(z, x, group=group)
+        if not (torch.equal(y, x * dist.get_world_size(group)) and torch.equal(parts[0], x)
+                and torch.equal(z, x)):
+            raise SystemExit(f"NCCL collectives over the {axis} group gave wrong values")
+
+
+def _zero_bytes(masters, ns=(1, 2, 4, 8)) -> dict:
+    """Per-rank bytes of AdamW's two fp32 moments under ZeRO-1 at each data
+    axis size n (`zero_sharding_for`'s rule on the masters' shapes),
+    reckoned, not run."""
+    from types import SimpleNamespace
+
+    from stableanimator_tpu_torch.parallel.mesh import zero_sharding_for
+
+    out = {}
+    for n in ns:
+        fake = SimpleNamespace(shape={"data": n, "frame": 1})
+        out[n] = 8 * sum(m.numel() // n if any(zero_sharding_for(m, fake).spec) else m.numel()
+                         for m in masters)
+    return out
+
+
+def _parallel_train(mesh) -> dict:
+    """One full-width training step through make_train_step(mesh=) with
+    ZeRO-1 beside the one-device step on the same batch, noises and seed
+    (update 0, at lr 0, so the masters stay and every state sees the same
+    weights): two one-device steps first, from two fresh states, give the
+    run-to-run spread of loss and grad_norm."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import build_models
+    from stableanimator_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    models = build_models(dtype=torch.float32, device="cuda", seed=0, remat=True)
+    cfg, pipe = TrainConfig(), PipelineConfig()
+    batch = _train_batch(1, cfg.sample_n_frames, pipe.height,
+                         models.face_encoder.config.id_embeddings_dim, "cuda")
+    runs = {}
+    zero = n_train = None
+    for run in ("one-device", "one-device again", "mesh (ZeRO-1)"):
+        on_mesh = run.startswith("mesh")
+        state = create_train_state(models, cfg, mesh=mesh if on_mesh else None)
+        if zero is None:
+            zero = _zero_bytes(state.masters)
+            n_train = sum(m.numel() for m in state.masters)
+        step_fn = make_train_step(models, cfg, pipe, mesh=mesh if on_mesh else None)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=generator)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        runs[run] = dict(seconds=sec, loss=metrics["loss"].item(),
+                         grad_norm=metrics["grad_norm"].item(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+        log(f"[parallel] train step, {run}: {sec:.3f} s, loss {runs[run]['loss']!r}, grad_norm "
+            f"{runs[run]['grad_norm']!r}, peak {runs[run]['peak_gib']:.1f} GiB, launches "
+            + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items()))
+        if counts["by_kernel"] != TRAIN_LAUNCHES:
+            raise SystemExit(f"{run} training step launched {counts['by_kernel']}")
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b, m = runs["one-device"], runs["one-device again"], runs["mesh (ZeRO-1)"]
+    ok = True
+    for key in ("loss", "grad_norm"):
+        spread = max(abs(a[key] - b[key]), PARALLEL_SPREAD_FLOOR * abs(a[key]))
+        diff = abs(m[key] - a[key])
+        log(f"[parallel] {key}: mesh - one-device {diff:.3e}, one-device run-to-run "
+            f"{abs(a[key] - b[key]):.3e}, bound {spread:.3e}")
+        ok &= diff <= spread
+    log(f"[parallel] ZeRO-1 optimizer bytes per rank (AdamW's fp32 moments of the "
+        f"{n_train / 1e9:.3f} B trainable parameters; reckoned): "
+        + ", ".join(f"data {n}: {v / 1e9:.3f} GB" for n, v in zero.items()))
+    if not ok:
+        raise SystemExit("the mesh training step disagrees with the one-device step")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, zero_bytes=zero)
+
+
+def _torchrun_cli():
+    """The training CLI under torchrun (one process, NCCL): 2 micro steps,
+    then a resume from `latest` to step 3."""
+    with tempfile.TemporaryDirectory() as tmp:
+        listing = _write_dataset(tmp, n_frames=4, hw=128)
+        out = os.path.join(tmp, "out")
+        common = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                  "--nproc_per_node", "1", "-m", "stableanimator_tpu_torch.cli.train",
+                  "--checkpoint_dir", os.path.join(tmp, "nockpt"), "--output_dir", out,
+                  "--data_root_path", tmp, "--rec_data_path", listing,
+                  "--dataset_width", "128", "--dataset_height", "128", "--sample_n_frames", "2",
+                  "--model_scale", "micro", "--allow_random_init", "--gradient_checkpointing",
+                  "--checkpointing_steps", "2", "--num_workers", "2"]
+        here = os.path.dirname(os.path.abspath(__file__))
+        for extra in (["--max_train_steps", "2"],
+                      ["--max_train_steps", "3", "--resume_from_checkpoint", "latest"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(common + extra, cwd=here, capture_output=True, text=True,
+                                  timeout=300)
+            lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith("WARNING")]
+            log(f"[parallel] torchrun cli {' '.join(extra)}: rc {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s: {' | '.join(lines)}")
+            if proc.returncode != 0:
+                raise SystemExit(f"the training CLI under torchrun failed:\n{proc.stderr[-3000:]}")
+        saved = sorted(int(d) for d in os.listdir(out) if d.isdigit())
+        if (saved != [2, 3] or "resumed from step 2" not in proc.stdout
+                or "mesh: 1 devices, global batch 1" not in proc.stdout):
+            raise SystemExit(f"the torchrun CLI's run and resume: {saved}")
+
+
+def phase_parallel(models, cfg, ref, pose, face, gen: dict, plain_frames) -> dict:
+    """The (data, frame) mesh on torch.distributed over NCCL, in a world of
+    one process (the machine has one card): the generate phase's request
+    through generate(mesh=) against its frames and beside a plain request,
+    one full-width ZeRO-1 training step beside the one-device step, the
+    ZeRO-1 bytes per rank reckoned at data 1-8, and the training CLI under
+    torchrun; then the process group goes."""
+    import torch.distributed as dist
+
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.parallel import make_mesh
+    from stableanimator_tpu_torch.pipeline.animation import generate
+
+    mesh = make_mesh()
+    log(f"[parallel] {mesh}, backend {dist.get_backend()}, world {dist.get_world_size()}")
+    _nccl_check(mesh)
+    expected = 10 * cfg.num_inference_steps + 1
+    out = {}
+    for run, kw in (("mesh", dict(mesh=mesh)), ("plain", {})):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        diff = (frames.float() - plain_frames.float()).abs().max().item()
+        out[run] = dict(seconds=sec, phases=timings, max_diff=diff,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+        log(f"[parallel] {run} request: {sec:.3f} s ({cfg.num_frames / sec:.3f} frames/s; the "
+            f"generate phase's timed request {gen['timed']['seconds']:.3f} s); phases "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
+            + f"; flash launches {counts['by_kernel'][FWD_KERNEL]} (expected {expected}); max "
+            f"|frames - the generate phase's frames| {diff!r} (bound {PARALLEL_FRAMES_ATOL})")
+        if counts["by_kernel"][FWD_KERNEL] != expected:
+            raise SystemExit(f"{run} request launched {counts['by_kernel']}")
+        if not diff <= PARALLEL_FRAMES_ATOL:
+            raise SystemExit(f"the {run} request's frames differ from the plain request's")
+    del frames
+    out["train"] = _parallel_train(mesh)
+    dist.destroy_process_group()
+    _torchrun_cli()
+    return out
+
+
+def _quant_dense_check():
+    """int8_dense on the card: tests/test_ops.py::TestInt8Quant's shape and
+    bounds against the fp32 product, and the card's int8 weight values and
+    scales against the CPU's."""
+    from stableanimator_tpu_torch.ops.quant import int8_dense, quantize_weight
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((64, 320), generator=gen)
+    w = torch.randn((1280, 320), generator=gen) * 0.05
+    b = torch.randn((1280,), generator=gen) * 0.1
+    out = int8_dense(x.cuda(), w.cuda(), b.cuda()).cpu()
+    ref = x.double() @ w.double().t() + b.double()
+    denom = torch.maximum(ref.abs(), ref.abs().quantile(0.5))
+    med = ((out.double() - ref).abs() / denom).median().item()
+    corr = torch.corrcoef(torch.stack([out.double().flatten(), ref.flatten()]))[0, 1].item()
+    wq, ws = quantize_weight(w.cuda())
+    wq_cpu, ws_cpu = quantize_weight(w)
+    same = torch.equal(wq.cpu(), wq_cpu) and torch.equal(ws.cpu(), ws_cpu)
+    log(f"[quant] int8_dense [64, 320] x [320, 1280] on the card against fp32: median relative "
+        f"error {med:.4f} (bound 0.02), corrcoef {corr:.6f} (bound 0.999); int8 weights and "
+        f"scales equal to the CPU's: {same}")
+    if not (med < 0.02 and corr > 0.999 and same):
+        raise SystemExit("int8_dense on the card fails its bounds")
+
+
+def _small_quant():
+    """A micro quant=True generate (fp32), card against CPU: the int8 path
+    is discontinuous, so the bound is the CPU's own spread between thread
+    counts (tests/test_torch_quant.py), not rounding."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+
+    cfg = PipelineConfig(num_frames=4, tile_size=4, tile_overlap=1, num_inference_steps=2,
+                         decode_chunk_size=2)
+    seeded = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu", seed=0)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        models = build_models(**micro_model_kwargs(), dtype=torch.float32, device=device,
+                              seed=None, quant=True)
+        for a, b in zip(seeded, models):
+            b.load_state_dict(a.state_dict())
+        ref, pose, face, aug = _inputs(64, 64, 4, 32, "cpu", seed=3)
+        init = torch.randn((1, 4, 8, 8, 4), generator=torch.Generator().manual_seed(4))
+        outs[device] = generate(models, ref, pose, face, cfg, aug_noise=aug, init_noise=init,
+                                device=device).cpu()
+    d = (outs["cpu"] - outs["cuda"]).abs()
+    corr = torch.corrcoef(torch.stack([outs["cpu"].flatten(), outs["cuda"].flatten()]))[0, 1]
+    log(f"[quant] micro quant generate fp32, card vs CPU: max {d.max().item():.3e}, mean "
+        f"{d.mean().item():.3e} (bound {SMALL_QUANT_MEAN}), corrcoef {corr.item():.5f} (bound "
+        f"{SMALL_QUANT_CORR})")
+    if not (d.mean().item() <= SMALL_QUANT_MEAN and corr.item() >= SMALL_QUANT_CORR):
+        raise SystemExit("the micro quant generate on the card disagrees with the CPU")
+
+
+def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) -> dict:
+    """The int8 path (W8A8, build_models(quant=True)): int8_dense on the
+    card, a micro quant generate card vs CPU, then the full-width request
+    built with quant=True from the generate phase's seed (warm-up and
+    timed), its launches, frames and their difference from the bf16
+    request's; one quant request under the profiler."""
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+
+    _quant_dense_check()
+    _small_quant()
+    models = build_models(dtype=torch.bfloat16, device="cuda", seed=0, quant=True)
+    expected = 10 * cfg.num_inference_steps + 1
+    out = {}
+    for run in ("warm-up", "timed"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        f32, p32 = frames.float(), plain_frames.float()
+        d = (f32 - p32).abs()
+        corr = torch.corrcoef(torch.stack([f32.flatten(), p32.flatten()]))[0, 1].item()
+        finite = bool(torch.isfinite(f32).all())
+        lo, hi = f32.min().item(), f32.max().item()
+        out[run] = dict(seconds=sec, phases=timings, mean_diff=d.mean().item(),
+                        max_diff=d.max().item(), corrcoef=corr,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+        log(f"[quant] {run} request (quant=True): {sec:.3f} s, {cfg.num_frames / sec:.3f} frames/s "
+            f"(bf16 request {gen['timed']['seconds']:.3f} s); phases "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
+            + f"; peak {out[run]['peak_gib']:.1f} GiB; flash launches "
+            f"{counts['by_kernel'][FWD_KERNEL]} (expected {expected}); frames finite={finite} "
+            f"range [{lo:.4f}, {hi:.4f}]; against the bf16 frames: mean |diff| "
+            f"{out[run]['mean_diff']:.4e}, max {out[run]['max_diff']:.4e}, corrcoef {corr:.5f}")
+        if counts["by_kernel"][FWD_KERNEL] != expected:
+            raise SystemExit(f"the quant request launched {counts['by_kernel']}")
+        if not finite or lo < 0.0 or hi > 1.0:
+            raise SystemExit("quant request frames not finite or outside [0, 1]")
+    if profile:
+        _profile("one quant request",
+                 lambda: generate(models, ref, pose, face, cfg, device="cuda"))
+    del models, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None,
+                    parallel=None, quant=None) -> list:
     """The JSON line's entries: each kernel's times at its shapes, weighted
     by the launches the main paths made at those shapes (generate's timed
-    request, the timed face-opt request, the server's first request, the
+    request, the timed face-opt request, the mesh request and the mesh
+    training step, the timed quant request, the server's first request, the
     64-frame CLI request and one timed training step)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
     if faceopt:
         paths["faceopt"] = faceopt["timed"]["by_shape"]
+    if parallel:
+        paths["parallel"] = parallel["mesh"]["by_shape"]
+        paths["parallel_train"] = parallel["train"]["runs"]["mesh (ZeRO-1)"]["by_shape"]
+    if quant:
+        paths["quant"] = quant["timed"]["by_shape"]
     if served:
         paths["serve"] = served["requests"][0]["by_shape"]
     if longvideo:
@@ -1947,8 +2274,10 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
                          else "bytes"),
             "library_ms": total["library_ms"],
             "per_request_of": "sum over the launches of generate's timed request, of the "
-                              "timed face-opt request, of the server's first request, of the "
-                              "64-frame CLI request and of one timed training step",
+                              "timed face-opt request, of the mesh request and the mesh "
+                              "training step, of the timed quant request, of the server's "
+                              "first request, of the 64-frame CLI request and of one timed "
+                              "training step",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -1991,7 +2320,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         l2_rate = phase_device()
     if "build" in phases:
         phase_build()
-    gen = longvideo = train = face = faceopt = served = None
+    gen = longvideo = train = face = faceopt = served = parallel = quant = None
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
     if "small" in phases:
@@ -2009,6 +2338,10 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         phase_ab(*state)
         if "faceopt" in phases:
             faceopt = phase_faceopt(*state, gen, plain_frames, face)
+        if "parallel" in phases:
+            parallel = phase_parallel(*state, gen, plain_frames)
+        if "quant" in phases:
+            quant = phase_quant(*state[1:], gen, plain_frames, "profile" in phases)
         del state, plain_frames
         gc.collect()                 # the generate phase's models go before the server's come
         torch.cuda.empty_cache()
@@ -2035,7 +2368,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         train_cli()
     if "kernels" in phases:
         log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
-                                                   served)}))
+                                                   served, parallel, quant)}))
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

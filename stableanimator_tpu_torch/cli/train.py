@@ -1,14 +1,21 @@
 """Training CLI (port of the JAX package's `cli/train.py`): the reference's
 `train.py` contract (command_train.sh:1-21, command_finetune.sh,
-README.md:285-363) on one device, torch.save checkpoints with `latest`
-resume, bf16 mixed precision.
+README.md:285-363), torch.save checkpoints with `latest` resume, bf16
+mixed precision, data-parallel over every rank.
 
     python -m stableanimator_tpu_torch.cli.train --checkpoint_dir ckpt \\
         --output_dir out --data_root_path data --rec_data_path rec.txt \\
         --gradient_checkpointing [--device cuda]
+    torchrun --nproc_per_node N -m stableanimator_tpu_torch.cli.train ...
 
-One device: the global batch is `--per_device_batch_size` (the JAX
-package's data-parallel mesh is not ported; ROADMAP queue 1 item 11).
+Without torchrun's environment it runs one process on one device. Under
+torchrun every rank goes on the mesh's data axis (`parallel.make_mesh()`,
+NCCL on CUDA, one card per process): the global batch is
+`--per_device_batch_size` x ranks, every rank draws the same global batches
+from the seeded sampler and loads its rows, the gradients are averaged over
+the ranks and the AdamW moments are sharded ZeRO-1 style
+(`train/train_step.py`). Rank 0 alone logs, validates and writes (and
+prunes) checkpoints, which keep the one-device format.
 """
 
 from __future__ import annotations
@@ -95,6 +102,8 @@ def main(argv=None):
         micro_model_kwargs,
     )
     from stableanimator_tpu_torch.core.metrics import MetricsLogger
+    from stableanimator_tpu_torch.parallel import make_mesh, shard_params
+    from stableanimator_tpu_torch.parallel.mesh import DATA_AXIS
     from stableanimator_tpu_torch.pipeline.animation import build_models, resolve_device
     from stableanimator_tpu_torch.train.data import (
         AnimationDataset,
@@ -105,6 +114,12 @@ def main(argv=None):
     from stableanimator_tpu_torch.train.train_step import create_train_state, make_train_step
 
     device = resolve_device(args.device)
+    mesh = make_mesh(device=device) if "WORLD_SIZE" in os.environ else None   # torchrun's
+    if mesh is not None:
+        device = mesh.device
+    lead = mesh is None or mesh.axis_index(DATA_AXIS) == 0
+    n_dev = 1 if mesh is None else mesh.size
+    global_batch = args.per_device_batch_size * n_dev
     cfg = TrainConfig(
         sample_n_frames=args.sample_n_frames,
         per_device_batch_size=args.per_device_batch_size,
@@ -135,16 +150,21 @@ def main(argv=None):
     models = build_models(**model_kwargs)
     load_state_dicts(args.checkpoint_dir, models, args.allow_random_init,
                      init_id_adapter=not args.finetune_mode)
+    if mesh is not None:
+        shard_params(models, mesh)
     state = create_train_state(models, cfg,
-                               trainable_keys=tuple(args.trainable_modules.split(",")))
-    print(f"device {device}, global batch {args.per_device_batch_size}")
+                               trainable_keys=tuple(args.trainable_modules.split(",")),
+                               mesh=mesh)
+    if lead:
+        print(f"mesh: {n_dev} devices, global batch {global_batch}")
 
     mgr = CheckpointManager(args.output_dir, total_limit=args.checkpoints_total_limit)
     if args.resume_from_checkpoint:
         step = (None if args.resume_from_checkpoint == "latest"
                 else int(args.resume_from_checkpoint))
         state.load_state_dict(mgr.restore(step, map_location=device))
-        print(f"resumed from step {state.step}")
+        if lead:
+            print(f"resumed from step {state.step}")
 
     rec = vec = None
     rec_path = args.rec_data_path or args.data_path
@@ -155,10 +175,15 @@ def main(argv=None):
         vec = AnimationDataset(read_path_list(args.vec_data_path), cfg.sample_n_frames,
                                576, 1024, seed=args.seed)
     sampler = MixedResolutionSampler(rec, vec, seed=args.seed)
-    loader = PrefetchLoader(sampler, args.per_device_batch_size,
-                            num_workers=max(1, args.num_workers // 2))
+    rows = None
+    if mesh is not None:                          # this rank's rows of every global batch
+        first = mesh.axis_index(DATA_AXIS) * args.per_device_batch_size
+        rows = range(first, first + args.per_device_batch_size)
+    loader = PrefetchLoader(sampler, global_batch, num_workers=max(1, args.num_workers // 2),
+                            rows=rows)
     step_fn = make_train_step(models, cfg, pipe,
-                              conditioning_dropout_prob=args.conditioning_dropout_prob)
+                              conditioning_dropout_prob=args.conditioning_dropout_prob,
+                              mesh=mesh)
     generator = torch.Generator(device=device)
 
     def run_validation(step: int):
@@ -188,7 +213,7 @@ def main(argv=None):
         images[0].save(out, save_all=True, append_images=images[1:], duration=125, loop=0)
         print(f"validation clip -> {out}")
 
-    metrics_log = MetricsLogger(args.output_dir, report_to=args.report_to)
+    metrics_log = MetricsLogger(args.output_dir, report_to=args.report_to if lead else "none")
     max_steps = args.max_train_steps or args.num_train_epochs * 1000
     t0 = time.time()
     start = state.step
@@ -198,20 +223,27 @@ def main(argv=None):
         generator.manual_seed(args.seed + state.step)
         state, metrics = step_fn(state, batch, generator=generator)
         step = state.step
-        if step % 10 == 0 or step == max_steps:
+        if lead and (step % 10 == 0 or step == max_steps):
             loss = float(metrics["loss"])
             gn = float(metrics["grad_norm"])
             sec = (time.time() - t0) / (step - start)
             print(f"step {step}: loss={loss:.4f} grad_norm={gn:.3f} ({sec:.2f}s/step)")
             metrics_log.log(step, {"loss": loss, "grad_norm": gn, "sec_per_step": sec})
-        if step % cfg.validation_steps == 0:
+        if lead and step % cfg.validation_steps == 0:
             run_validation(step)
         if step % cfg.checkpointing_steps == 0:
-            mgr.save(step, state.state_dict())
-            print(f"checkpointed step {step}")
-    mgr.save(state.step, state.state_dict())
+            sd = state.state_dict()               # every rank: it gathers the moments
+            if lead:
+                mgr.save(step, sd)
+                print(f"checkpointed step {step}")
+    sd = state.state_dict()
+    if lead:
+        mgr.save(state.step, sd)
     loader.close()
     metrics_log.close()
+    if mesh is not None:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,6 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stableanimator_tpu_torch.ops.norms import group_norm, layer_norm
+from stableanimator_tpu_torch.ops.quant import int8_dense, quantize_weight
+from stableanimator_tpu_torch.parallel import sequence
 
 
 class Conv2d(nn.Conv2d):
@@ -36,6 +38,14 @@ class Conv3d(nn.Conv3d):
     def forward(self, x):
         return super().forward(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
 
+    def forward_halo(self, x):
+        """The convolution of a frame block that `sequence.halo_exchange`
+        extended by the padding's frames: no padding over frames."""
+        pad = (0,) + tuple(self.padding[1:])
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias, self.stride, pad,
+                       self.dilation, self.groups)
+        return out.permute(0, 2, 3, 4, 1)
+
 
 class GroupNorm(nn.Module):
     """GroupNorm with fp32 statistics over channels-last input."""
@@ -47,8 +57,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x):
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+    def forward(self, x, stats_group=None):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, stats_group)
 
 
 class LayerNorm(nn.Module):
@@ -133,8 +143,19 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
+def _temporal_conv(conv: Conv3d, x, group):
+    """conv over the frames of x; with a frame group, of x's frame block."""
+    if group is None:
+        return conv(x)
+    return conv.forward_halo(sequence.halo_exchange(x, 1, conv.padding[0]))
+
+
 class TemporalResnetBlock(nn.Module):
-    """Resnet over the frame axis: Conv3d (3,1,1) on [B, F, H, W, C]."""
+    """Resnet over the frame axis: Conv3d (3,1,1) on [B, F, H, W, C].
+
+    Under a frame-sharded mesh (`parallel/sequence.py`) x is this rank's
+    block of frames: each convolution takes a one-frame halo from the
+    neighbouring blocks and both norms' statistics cover every frame."""
 
     def __init__(self, in_ch: int, out_ch: int, temb_ch: int | None = None,
                  eps: float = 1e-6):
@@ -147,11 +168,12 @@ class TemporalResnetBlock(nn.Module):
         self.conv_shortcut = Conv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        group = sequence.frame_group()
+        h = _temporal_conv(self.conv1, F.silu(self.norm1(x, group)), group)
         if self.time_emb_proj is not None and temb is not None:
             # temb: [B, F, E]
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = _temporal_conv(self.conv2, F.silu(self.norm2(h, group)), group)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -213,12 +235,42 @@ class Upsample2D(nn.Module):
         return self.conv(upsample_nearest_2x(x))
 
 
-class GEGLU(nn.Module):
-    """x W1 * gelu(x W2) from one projection; exact erf GELU."""
+class QuantLinear(nn.Linear):
+    """nn.Linear computed through the int8 path (W8A8, `ops/quant.py`). Its
+    parameters are nn.Linear's, so the same state dict loads either way
+    (strict); only the forward differs. The weight's int8 form is kept until
+    the weight changes: the JAX package quantises inside the denoise loop
+    and XLA hoists the loop-invariant quantisation out of it."""
 
-    def __init__(self, dim: int, inner: int):
+    _cache: tuple | None = None
+
+    def quantized(self):
+        """(int8 weight [out, in], fp32 scale [out]) of the current weight."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, torch.is_inference_mode_enabled())
+        if self._cache is None or self._cache[0] != key:
+            with torch.no_grad():
+                self._cache = (key, quantize_weight(w))
+        return self._cache[1]
+
+    def forward(self, x):
+        return int8_dense(x, self.weight, self.bias, quantized=self.quantized())
+
+
+def make_linear(in_features: int, out_features: int, bias: bool = True,
+                quant: bool = False) -> nn.Linear:
+    """nn.Linear, or its int8 twin QuantLinear when `quant`."""
+    return (QuantLinear if quant else nn.Linear)(in_features, out_features, bias=bias)
+
+
+class GEGLU(nn.Module):
+    """x W1 * gelu(x W2) from one projection; exact erf GELU. quant: the
+    projection is a QuantLinear (the computation of
+    `ops/quant.py::int8_geglu`)."""
+
+    def __init__(self, dim: int, inner: int, quant: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = make_linear(dim, inner * 2, quant=quant)
 
     def forward(self, x):
         value, gate = self.proj(x).chunk(2, dim=-1)
@@ -228,11 +280,13 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """diffusers FeedForward: net = [GEGLU(proj), dropout slot, Linear]."""
 
-    def __init__(self, dim: int, dim_out: int | None = None, mult: int = 4):
+    def __init__(self, dim: int, dim_out: int | None = None, mult: int = 4,
+                 quant: bool = False):
         super().__init__()
         inner = int(dim * mult)
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
-                                  nn.Linear(inner, dim_out if dim_out is not None else dim)])
+        self.net = nn.ModuleList([GEGLU(dim, inner, quant), nn.Identity(),
+                                  make_linear(inner, dim_out if dim_out is not None else dim,
+                                              quant=quant)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))

@@ -7,12 +7,23 @@ and the output are transposed to the frame-major layout. Spatial
 self-attention routes through `ops.attention.dot_product_attention` (the
 flash kernel for long 16-bit sequences on the card); temporal and ID
 attention always take the plain path, as in the JAX package.
+
+Under a frame-sharded mesh (`parallel/sequence.py`) each rank holds a block
+of every video's frames: temporal self-attention moves q, k and v to a
+block of rows with every frame (one all-to-all) and back, and the frame
+embedding uses the block's global frame indices and the first frame's
+context.
+
+quant: the feed-forwards, every attention's output projection and the
+transformers' proj_in / proj_out run through the int8 path
+(`layers.QuantLinear`), the JAX package's `quant=True` set.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from stableanimator_tpu_torch.models.layers import (
     AlphaBlender,
@@ -20,9 +31,34 @@ from stableanimator_tpu_torch.models.layers import (
     GroupNorm,
     LayerNorm,
     TimestepEmbedding,
+    make_linear,
     sinusoidal_embedding,
 )
 from stableanimator_tpu_torch.ops.attention import dot_product_attention
+from stableanimator_tpu_torch.parallel import sequence
+
+
+def _temporal_attention(q, k, v, b: int, f: int):
+    """Self-attention over the frames of [b*f, S, H, D] tensors (f: this
+    rank's frames): frame-major [b*S, f, H, D]; under a frame-sharded mesh
+    q, k and v move to a block of rows with every frame (one all-to-all) and
+    the output back, or, when the rows do not split over the frame group
+    (1x1 levels of tiny configs), k and v gather every frame."""
+    n, sq, heads, d = q.shape
+
+    def to_frame_major(t):
+        return t.reshape(b, f, sq, heads, d).transpose(1, 2).reshape(b * sq, f, heads, d)
+
+    q, k, v = to_frame_major(q), to_frame_major(k), to_frame_major(v)
+    mesh = sequence.frame_mesh()
+    if mesh is not None and (b * sq) % mesh.shape[sequence.FRAME_AXIS] == 0:
+        qkv = sequence.frames_to_rows(torch.stack([q, k, v], dim=2))
+        o = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], use_flash=False)
+        o = sequence.rows_to_frames(o)
+    else:
+        o = dot_product_attention(q, sequence.gather_frames(k, 1), sequence.gather_frames(v, 1),
+                                  use_flash=False)
+    return o.reshape(b, sq, f, heads, d).transpose(1, 2)
 
 
 class Attention(nn.Module):
@@ -30,7 +66,7 @@ class Attention(nn.Module):
     have no bias, to_out.0 does (diffusers keeps [Linear, Dropout] there)."""
 
     def __init__(self, query_dim: int, cross_dim: int | None, heads: int,
-                 dim_head: int, use_flash: bool | None = None):
+                 dim_head: int, use_flash: bool | None = None, quant: bool = False):
         super().__init__()
         inner = heads * dim_head
         cross_dim = cross_dim if cross_dim is not None else query_dim
@@ -40,7 +76,7 @@ class Attention(nn.Module):
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Identity()])
+        self.to_out = nn.ModuleList([make_linear(inner, query_dim, quant=quant), nn.Identity()])
 
     def forward(self, x, context=None, seq_axis_group: tuple[int, int] | None = None):
         """seq_axis_group=(batch, frames): x is [batch*frames, S, C] and
@@ -52,11 +88,14 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         # softmax over a single key is exactly 1: the output is
         # to_out(to_v(context)) broadcast over the queries. Not valid for
-        # temporal self-attention, whose attention axis is the frames.
+        # temporal self-attention, whose attention axis is the frames (all of
+        # them, also when this rank holds a block of one).
         single_key = context.shape[1] == 1 and not (
-            is_self and seq_axis_group is not None and seq_axis_group[1] != 1)
+            is_self and seq_axis_group is not None
+            and seq_axis_group[1] * sequence.frame_blocks() != 1)
         if single_key:
-            o = self.to_out[0](self.to_v(context))
+            # to_out in full precision here, as in the JAX package
+            o = F.linear(self.to_v(context), self.to_out[0].weight, self.to_out[0].bias)
             return o.expand(n, sq, o.shape[-1])
         q = self.to_q(x)
         k = self.to_k(context)
@@ -66,15 +105,7 @@ class Attention(nn.Module):
         k = k.reshape(n, sk, self.heads, self.dim_head)
         v = v.reshape(n, sk, self.heads, self.dim_head)
         if is_self and seq_axis_group is not None:
-            b, f = seq_axis_group
-
-            def to_frame_major(t):
-                t = t.reshape(b, f, sq, self.heads, self.dim_head)
-                return t.transpose(1, 2).reshape(b * sq, f, self.heads, self.dim_head)
-
-            o = dot_product_attention(to_frame_major(q), to_frame_major(k),
-                                      to_frame_major(v), use_flash=False)
-            o = o.reshape(b, sq, f, self.heads, self.dim_head).transpose(1, 2)
+            o = _temporal_attention(q, k, v, *seq_axis_group)
         else:
             o = dot_product_attention(q, k, v, use_flash=self.use_flash)
         return self.to_out[0](o.reshape(n, sq, inner))
@@ -96,7 +127,7 @@ class IDCrossAttention(nn.Module):
     Bessel-corrected) and added."""
 
     def __init__(self, query_dim: int, cross_dim: int, heads: int, dim_head: int,
-                 num_id_tokens: int = 4):
+                 num_id_tokens: int = 4, quant: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
@@ -105,7 +136,7 @@ class IDCrossAttention(nn.Module):
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Identity()])
+        self.to_out = nn.ModuleList([make_linear(inner, query_dim, quant=quant), nn.Identity()])
         self.processor = _IDProcessor(cross_dim, inner)
 
     def forward(self, x, context):
@@ -152,14 +183,14 @@ class BasicTransformerBlock(nn.Module):
     """Spatial block: self-attn -> ID cross-attn -> GEGLU FF, pre-LN."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_dim: int,
-                 num_id_tokens: int = 4):
+                 num_id_tokens: int = 4, quant: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, None, heads, dim_head)
+        self.attn1 = Attention(dim, None, heads, dim_head, quant=quant)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = IDCrossAttention(dim, cross_dim, heads, dim_head, num_id_tokens)
+        self.attn2 = IDCrossAttention(dim, cross_dim, heads, dim_head, num_id_tokens, quant)
         self.norm3 = LayerNorm(dim)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, quant=quant)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -171,16 +202,17 @@ class TemporalBasicTransformerBlock(nn.Module):
     """Temporal block over the frame axis, run in the spatial token layout
     [B*F, S, C]; returns a*x + (1-a)*block(x + frame_emb)."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, cross_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_dim: int,
+                 quant: bool = False):
         super().__init__()
         self.norm_in = LayerNorm(dim)
-        self.ff_in = FeedForward(dim, dim_out=dim)
+        self.ff_in = FeedForward(dim, dim_out=dim, quant=quant)
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, None, heads, dim_head, use_flash=False)
+        self.attn1 = Attention(dim, None, heads, dim_head, use_flash=False, quant=quant)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, cross_dim, heads, dim_head, use_flash=False)
+        self.attn2 = Attention(dim, cross_dim, heads, dim_head, use_flash=False, quant=quant)
         self.norm3 = LayerNorm(dim)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, quant=quant)
 
     def forward(self, x, time_context, frame_emb, mix_alpha, *, num_frames: int):
         b = x.shape[0] // num_frames
@@ -197,25 +229,27 @@ class TemporalBasicTransformerBlock(nn.Module):
 class TransformerSpatioTemporalModel(nn.Module):
     """Spatial + temporal transformer pair with frame positional embedding
     and a learned blend. Input [N, H, W, C] (N = B*F); context
-    [N, 1+num_id_tokens, cross_dim]."""
+    [N, 1+num_id_tokens, cross_dim]. Under a frame-sharded mesh N is
+    B * this rank's frames, and the frame embedding and the time context
+    are those of the global frames."""
 
     def __init__(self, heads: int, dim_head: int, in_ch: int, cross_dim: int,
-                 num_layers: int = 1, num_id_tokens: int = 4):
+                 num_layers: int = 1, num_id_tokens: int = 4, quant: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.in_ch = in_ch
         self.num_id_tokens = num_id_tokens
         self.norm = GroupNorm(32, in_ch, eps=1e-6)
-        self.proj_in = nn.Linear(in_ch, inner)
+        self.proj_in = make_linear(in_ch, inner, quant=quant)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, dim_head, cross_dim, num_id_tokens)
+            BasicTransformerBlock(inner, heads, dim_head, cross_dim, num_id_tokens, quant)
             for _ in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList([
-            TemporalBasicTransformerBlock(inner, heads, dim_head, cross_dim)
+            TemporalBasicTransformerBlock(inner, heads, dim_head, cross_dim, quant)
             for _ in range(num_layers)])
         self.time_pos_embed = TimestepEmbedding(in_ch, in_ch * 4, out_dim=in_ch)
         self.time_mixer = AlphaBlender(0.5)
-        self.proj_out = nn.Linear(inner, in_ch)
+        self.proj_out = make_linear(inner, in_ch, quant=quant)
 
     def forward(self, x, context, *, num_frames: int):
         n, hh, ww, c_in = x.shape
@@ -223,13 +257,16 @@ class TransformerSpatioTemporalModel(nn.Module):
         s = hh * ww
         # time context: frame 0's base (CLIP) tokens, repeated over frames
         end_pos = context.shape[1] - self.num_id_tokens
-        tc_first = context[:, :end_pos].reshape(b, num_frames, end_pos, -1)[:, 0]
+        tc_first = sequence.first_frame(
+            context[:, :end_pos].reshape(b, num_frames, end_pos, -1)[:, 0])
         time_context = tc_first[:, None].expand(b, num_frames, end_pos, tc_first.shape[-1])
         time_context = time_context.reshape(n, end_pos, tc_first.shape[-1])
 
         residual = x
         h = self.proj_in(self.norm(x).reshape(n, s, c_in))
-        frame_ids = torch.arange(num_frames, dtype=torch.float32, device=x.device).repeat(b)
+        first = sequence.frame_offset(num_frames)
+        frame_ids = torch.arange(first, first + num_frames, dtype=torch.float32,
+                                 device=x.device).repeat(b)
         t_emb = sinusoidal_embedding(frame_ids, c_in).to(h.dtype)
         emb = self.time_pos_embed(t_emb)[:, None, :]
         alpha = self.time_mixer.alpha()

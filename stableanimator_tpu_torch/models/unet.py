@@ -18,6 +18,15 @@ TransformerSpatioTemporalModel; nesting a second checkpoint here would run
 the inner forward three times (attention included) for no memory the outer
 level does not already save, so the port takes the outer level only. The
 function computed is the same either way.
+
+`quant=True` runs the transformers' feed-forwards and projections through
+the int8 path (`layers.QuantLinear`) with the same parameters.
+
+Under a frame-sharded mesh (`parallel/sequence.py`, the active mesh of
+`ops/gate.py`) `sample` holds this rank's block of each video's frames and
+`num_frames` below is the block's count: the temporal resnets and
+transformers exchange what they need with the other blocks, and the frame
+embedding starts at the block's offset.
 """
 
 from __future__ import annotations
@@ -48,11 +57,11 @@ def _run(remat: bool, module: nn.Module, *args, **kwargs):
     return module(*args, **kwargs)
 
 
-def _transformer(cfg: UNetConfig, ch: int, heads: int):
+def _transformer(cfg: UNetConfig, ch: int, heads: int, quant: bool):
     return TransformerSpatioTemporalModel(
         heads, ch // heads, ch, cfg.cross_attention_dim,
         num_layers=cfg.transformer_layers_per_block,
-        num_id_tokens=cfg.num_id_tokens)
+        num_id_tokens=cfg.num_id_tokens, quant=quant)
 
 
 class DownBlock(nn.Module):
@@ -60,7 +69,7 @@ class DownBlock(nn.Module):
     returns the output and the skip states it contributes."""
 
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int, heads: int | None,
-                 eps: float, add_downsample: bool, remat: bool = False):
+                 eps: float, add_downsample: bool, remat: bool = False, quant: bool = False):
         super().__init__()
         self.remat = remat
         temb = cfg.time_embed_dim
@@ -68,7 +77,7 @@ class DownBlock(nn.Module):
             SpatioTemporalResBlock(in_ch if j == 0 else out_ch, out_ch, temb, eps=eps)
             for j in range(cfg.layers_per_block)])
         self.attentions = (nn.ModuleList([
-            _transformer(cfg, out_ch, heads) for _ in range(cfg.layers_per_block)])
+            _transformer(cfg, out_ch, heads, quant) for _ in range(cfg.layers_per_block)])
             if heads is not None else None)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_ch)])
                              if add_downsample else None)
@@ -89,14 +98,14 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     """resnet -> transformer -> resnet (eps 1e-5)."""
 
-    def __init__(self, cfg: UNetConfig, remat: bool = False):
+    def __init__(self, cfg: UNetConfig, remat: bool = False, quant: bool = False):
         super().__init__()
         self.remat = remat
         ch, heads = cfg.block_out_channels[-1], cfg.num_attention_heads[-1]
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
             SpatioTemporalResBlock(ch, ch, temb, eps=1e-5) for _ in range(2)])
-        self.attentions = nn.ModuleList([_transformer(cfg, ch, heads)])
+        self.attentions = nn.ModuleList([_transformer(cfg, ch, heads, quant)])
 
     def forward(self, x, temb, context, num_frames):
         x = _run(self.remat, self.resnets[0], x, temb, num_frames=num_frames)
@@ -109,7 +118,8 @@ class UpBlock(nn.Module):
     (+ nearest-2x upsample conv), resnet eps 1e-6."""
 
     def __init__(self, cfg: UNetConfig, in_ch: int, skip_chs: list[int], out_ch: int,
-                 heads: int | None, add_upsample: bool, remat: bool = False):
+                 heads: int | None, add_upsample: bool, remat: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.remat = remat
         temb = cfg.time_embed_dim
@@ -118,7 +128,7 @@ class UpBlock(nn.Module):
                                    temb, eps=1e-6)
             for j in range(len(skip_chs))])
         self.attentions = (nn.ModuleList([
-            _transformer(cfg, out_ch, heads) for _ in skip_chs])
+            _transformer(cfg, out_ch, heads, quant) for _ in skip_chs])
             if heads is not None else None)
         self.upsamplers = nn.ModuleList([Upsample2D(out_ch)]) if add_upsample else None
 
@@ -141,9 +151,11 @@ class UNetSpatioTemporal(nn.Module):
       added_time_ids: [B, 3]  (fps-1, motion_bucket, noise_aug)
       pose_latents:   [B*F, h, w, block_out[0]] or None
     returns           [B, F, h, w, out_channels] in the compute dtype.
-    remat: gradient checkpointing of the blocks' resnets and transformers."""
+    remat: gradient checkpointing of the blocks' resnets and transformers.
+    quant: the transformers' int8 path."""
 
-    def __init__(self, config: UNetConfig | None = None, remat: bool = False):
+    def __init__(self, config: UNetConfig | None = None, remat: bool = False,
+                 quant: bool = False):
         super().__init__()
         cfg = self.config = config or UNetConfig()
         self.remat = remat
@@ -160,7 +172,7 @@ class UNetSpatioTemporal(nn.Module):
             add_down = i < len(ch) - 1
             if block_type == "CrossAttnDownBlockSpatioTemporal":
                 blk = DownBlock(cfg, in_ch, ch[i], cfg.num_attention_heads[i], 1e-6, add_down,
-                                remat)
+                                remat, quant)
             elif block_type == "DownBlockSpatioTemporal":
                 blk = DownBlock(cfg, in_ch, ch[i], None, 1e-5, False, remat)
             else:
@@ -169,7 +181,7 @@ class UNetSpatioTemporal(nn.Module):
             skip_chs += [ch[i]] * (cfg.layers_per_block + (blk.downsamplers is not None))
             in_ch = ch[i]
 
-        self.mid_block = MidBlock(cfg, remat)
+        self.mid_block = MidBlock(cfg, remat, quant)
 
         rev_ch = list(reversed(ch))
         rev_heads = list(reversed(cfg.num_attention_heads))
@@ -186,7 +198,7 @@ class UNetSpatioTemporal(nn.Module):
             else:
                 raise ValueError(block_type)
             self.up_blocks.append(UpBlock(cfg, in_ch, block_skips[::-1], rev_ch[i], heads,
-                                          i < len(ch) - 1, remat))
+                                          i < len(ch) - 1, remat, quant))
             in_ch = rev_ch[i]
 
         self.conv_norm_out = GroupNorm(32, ch[0], eps=1e-5)

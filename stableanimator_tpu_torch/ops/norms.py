@@ -13,19 +13,32 @@ non-batch axes within each contiguous channel group.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over a channels-last tensor x [N, *spatial, C]."""
+               num_groups: int = 32, eps: float = 1e-5, stats_group=None) -> torch.Tensor:
+    """GroupNorm over a channels-last tensor x [N, *spatial, C].
+
+    stats_group: a process group whose ranks hold the other blocks of x's
+    axes after N (equal blocks; the frame axis of a frame-sharded video,
+    `parallel/sequence.py`): the statistics' two sums are all-reduced over
+    it, so they cover the whole tensor."""
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
     cg = c // num_groups
     xg = x.reshape(n, -1, num_groups, cg)
     x32 = xg.float()
-    mean = x32.mean(dim=(1, 3), keepdim=True)
-    mean_sq = x32.square().mean(dim=(1, 3), keepdim=True)
+    if stats_group is None:
+        mean = x32.mean(dim=(1, 3), keepdim=True)
+        mean_sq = x32.square().mean(dim=(1, 3), keepdim=True)
+    else:
+        sums = torch.stack([x32.sum(dim=(1, 3), keepdim=True),
+                            x32.square().sum(dim=(1, 3), keepdim=True)])
+        dist.all_reduce(sums, group=stats_group)
+        sums /= xg.shape[1] * cg * dist.get_world_size(stats_group)
+        mean, mean_sq = sums[0], sums[1]
     del x32
     var = (mean_sq - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)                          # [n, 1, G, 1] fp32

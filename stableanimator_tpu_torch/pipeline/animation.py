@@ -1,5 +1,5 @@
 """The end-to-end animation pipeline (port of the JAX package's
-`pipeline/animation.py`), on one device.
+`pipeline/animation.py`), on one device or a (data, frame) mesh.
 
 `generate` runs, in order:
   1. `_prepare_denoise_state`: `encode_conditioning` (antialiased resize ->
@@ -26,8 +26,16 @@ of both denoise loops goes through the HJB identity refinement of x0_hat
 (`_advance_latents`), and the segmented path's step budget halves, as in
 the JAX package.
 
-Inputs and outputs keep the JAX package's channels-last layouts. The mesh
-raises NotImplementedError.
+With a `mesh` (parallel/mesh.py::make_mesh; one process per rank, each
+calling `generate` with the same inputs) every UNet call splits its CFG x
+tiles rows over "data" and each tile's frames over "frame", as the JAX
+package shards them; the UNet's output is gathered on every rank, so the
+blend, guidance and Euler update run replicated and every rank holds the
+same latents. Grouped denoising takes groups of one tile (the JAX
+package's rule), and the decode gives each rank whole chunks, then gathers
+the frames. The mesh is the active mesh (`ops/gate.py`) during the call.
+
+Inputs and outputs keep the JAX package's channels-last layouts.
 """
 
 from __future__ import annotations
@@ -68,13 +76,15 @@ from stableanimator_tpu_torch.models.clip import (
     CLIPVisionModelWithProjection,
 )
 from stableanimator_tpu_torch.models.id_encoder import FusionFaceId
-from stableanimator_tpu_torch.models.layers import FP32_MODULES, cast_compute
+from stableanimator_tpu_torch.models.layers import FP32_MODULES, cast_compute, module_dtype
 from stableanimator_tpu_torch.models.pose_net import PoseNet
 from stableanimator_tpu_torch.models.unet import UNetSpatioTemporal
 from stableanimator_tpu_torch.models.vae import AutoencoderKLTemporalDecoder
 from stableanimator_tpu_torch.ops import build
 from stableanimator_tpu_torch.ops import flash_attention as fa
+from stableanimator_tpu_torch.ops.gate import use_mesh
 from stableanimator_tpu_torch.ops.resize import resize_antialias
+from stableanimator_tpu_torch.parallel.mesh import AXES, DATA_AXIS, FRAME_AXIS, Sharding
 
 DEFAULT_SEED = 23123134  # the reference's seed_everything default
 
@@ -132,15 +142,17 @@ def build_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None =
                  face_cfg: FaceEncoderConfig | None = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda",
-                 seed: int | None = 0, remat: bool = False) -> AnimationModels:
+                 seed: int | None = 0, remat: bool = False,
+                 quant: bool = False) -> AnimationModels:
     """Build the five models on `device`, parameters filled from `seed`
     (`fill_parameters`) or left uninitialised for a checkpoint load when
     seed is None. Parameters are stored in `dtype` except the fp32 islands
-    (`cast_models`). `remat` turns on the UNet's gradient checkpointing."""
+    (`cast_models`). `remat` turns on the UNet's gradient checkpointing,
+    `quant` its int8 path (same parameters)."""
     device = resolve_device(device)
     with torch.device("meta"):
         models = AnimationModels(
-            unet=UNetSpatioTemporal(unet_cfg or UNetConfig(), remat=remat),
+            unet=UNetSpatioTemporal(unet_cfg or UNetConfig(), remat=remat, quant=quant),
             vae=AutoencoderKLTemporalDecoder(vae_cfg or VAEConfig()),
             clip=CLIPVisionModelWithProjection(clip_cfg or CLIPVisionConfig()),
             pose_net=PoseNet(pose_cfg or PoseNetConfig()),
@@ -199,9 +211,31 @@ def encode_conditioning(models: AnimationModels, ref_image, face_embedding,
 # denoising
 # ---------------------------------------------------------------------------
 
+def _unet(models: AnimationModels, batch, t, ctx, ids, pose, mesh):
+    """The UNet on batch [R, T, h, w, 8] (ctx [R, ...], ids [R, 3], pose
+    [R*T, ...]), fp32 out. Under a mesh each rank runs its rows ("data") and
+    its block of frames ("frame"), and the output is gathered on every
+    rank. An axis that does not divide its dim (2 rows over 4 data ranks)
+    holds that dim whole on each of its ranks, which compute it alike (the
+    JAX package's GSPMD shards unevenly instead; the results are the
+    same)."""
+    if mesh is None:
+        return models.unet(batch, t, ctx, ids, pose).float()
+    r, f = batch.shape[:2]
+    data = DATA_AXIS if r % mesh.shape[DATA_AXIS] == 0 else None
+    frame = FRAME_AXIS if f % mesh.shape[FRAME_AXIS] == 0 else None
+    video = Sharding(mesh, (data, frame, None, None, None))
+    rows = Sharding(mesh, (data, None))
+    pose = video.local(pose.reshape(batch.shape[:2] + pose.shape[1:]))
+    with use_mesh(mesh if frame is not None else None):    # no frame collectives
+        out = models.unet(video.local(batch), t, rows.local(ctx), rows.local(ids),
+                          pose.reshape((-1,) + pose.shape[2:]))
+    return video.gather(out).float()
+
+
 def denoise(models: AnimationModels, latents, context, image_latents, add_time_ids,
             pose_latents, schedule, cfg: PipelineConfig, step_start: int = 0,
-            num_steps: int | None = None, face_opt=None):
+            num_steps: int | None = None, face_opt=None, mesh=None):
     """Euler steps with CFG: steps [step_start, step_start + num_steps) of
     `schedule` (all of them by default), each through `face_opt`'s
     refinement when one is given.
@@ -210,7 +244,10 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
     context [2, 1+num_id, D]; image_latents [2, h, w, 4]; pose_latents
     [F, h, w, c0]. Index 0 of the conditioning is the uncond stream. Every
     tile goes into one UNet call per step, unless `max_tile_batch` (or its
-    "auto" policy) asks for groups of fewer tiles: `_denoise_grouped`."""
+    "auto" policy) asks for groups of fewer tiles: `_denoise_grouped`.
+    mesh: the UNet batch's rows go over "data", its frames over "frame"
+    (`_unet`); groups are of one tile, so that the CFG pair is the data
+    axis's batch (the JAX package's rule)."""
     f = latents.shape[1]
     device = latents.device
     tiles_np = tile_indices(f, cfg.tile_size, cfg.tile_overlap)
@@ -226,10 +263,12 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
 
     mtb = (auto_tile_batch(f, cfg.tile_size, cfg.tile_overlap)
            if cfg.max_tile_batch == "auto" else cfg.max_tile_batch)
+    if mesh is not None and mtb is not None:
+        mtb = 1
     if mtb is not None and mtb < n_tiles:
         return _denoise_grouped(models, latents, context, image_latents, add_time_ids,
                                 pose_latents, schedule, mtb, tiles_np, weights_np, counts_t,
-                                guidance, steps, face_opt)
+                                guidance, steps, face_opt, mesh)
 
     tiles = torch.from_numpy(tiles_np.astype(np.int64)).to(device)
     flat_idx = tiles.reshape(-1)
@@ -255,8 +294,8 @@ def denoise(models: AnimationModels, latents, context, image_latents, add_time_i
         x_u = torch.cat([x_tiles, torch.zeros_like(img_c)], dim=-1)
         x_c = torch.cat([x_tiles, img_c], dim=-1)
         batch = torch.cat([x_u, x_c], dim=0)               # [2n, T, h, w, 8]
-        out = models.unet(batch, schedule.timesteps[i], ctx_batch, ids_batch,
-                          pose_batch).float()
+        out = _unet(models, batch, schedule.timesteps[i], ctx_batch, ids_batch, pose_batch,
+                    mesh)
         out = out * weights
         noise_uncond = blend(out[:n_tiles])
         noise_cond = blend(out[n_tiles:])
@@ -270,14 +309,15 @@ def _advance_latents(lat, noise_pred, sigma, sigma_next, i: int, face_opt):
     `face_opt` has steps (`FaceOptimizer.refine` acts at its step window)."""
     if face_opt is not None and face_opt.cfg.steps > 0:
         x0 = pred_original_sample(noise_pred[None], lat, sigma)
-        x0 = face_opt.refine(x0, i)
+        with use_mesh(None):          # replicated on every rank of a mesh
+            x0 = face_opt.refine(x0, i)
         return step_euler_from_x0(x0, lat, sigma, sigma_next)
     return step_euler(noise_pred[None], lat, sigma, sigma_next)
 
 
 def _denoise_grouped(models: AnimationModels, latents, context, image_latents, add_time_ids,
                      pose_latents, schedule, group_size: int, tiles_np, weights_np, counts_t,
-                     guidance, steps, face_opt=None):
+                     guidance, steps, face_opt=None, mesh=None):
     """Long-video denoise: one UNet call per group of `group_size` tiles.
 
     The math of the all-tiles path in `denoise` (each tile's UNet output is
@@ -320,7 +360,7 @@ def _denoise_grouped(models: AnimationModels, latents, context, image_latents, a
             batch = torch.cat([torch.cat([x_t, torch.zeros_like(img_c)], dim=-1),
                                torch.cat([x_t, img_c], dim=-1)], dim=0)   # [2g, T, h, w, 8]
             pose_b = torch.cat([pose_uncond, pose_groups[gi]], dim=0)
-            out = models.unet(batch, schedule.timesteps[i], ctx_pair, ids_pair, pose_b).float()
+            out = _unet(models, batch, schedule.timesteps[i], ctx_pair, ids_pair, pose_b, mesh)
             outs.append(out * wm[gi])
         outs = torch.stack(outs)                           # [G, 2g, T, h, w, 4]
         frame_shape = (-1,) + outs.shape[3:]
@@ -339,9 +379,12 @@ def _denoise_grouped(models: AnimationModels, latents, context, image_latents, a
 # decode
 # ---------------------------------------------------------------------------
 
-def decode_frames(models: AnimationModels, latents, cfg: PipelineConfig):
+def decode_frames(models: AnimationModels, latents, cfg: PipelineConfig, mesh=None):
     """Chunked temporal-VAE decode. latents [1, F, h, w, 4] -> frames
-    [F, H, W, 3] fp32 in [0, 1] (uint8 when cfg.output_uint8)."""
+    [F, H, W, 3] fp32 in [0, 1] (uint8 when cfg.output_uint8). mesh: each
+    rank decodes whole chunks (`_decode_sharded`)."""
+    if mesh is not None and mesh.size > 1:
+        return _decode_sharded(models, latents, cfg, mesh)
     f = latents.shape[1]
     chunk = min(cfg.decode_chunk_size, f)
     rem = f % chunk
@@ -357,8 +400,37 @@ def decode_frames(models: AnimationModels, latents, cfg: PipelineConfig):
         parts = [vae.decode(z[s:s + chunk], num_frames=chunk) for s in range(0, full, chunk)]
         if rem:
             parts.append(vae.decode(z[full:], num_frames=rem))
-    frames = (torch.cat(parts).float() / 2.0 + 0.5).clamp(0.0, 1.0)
+    return _to_frames(torch.cat(parts), cfg)
+
+
+def _to_frames(decoded, cfg: PipelineConfig):
+    """The VAE's [-1, 1] output -> frames in [0, 1] (uint8 when asked)."""
+    frames = (decoded.float() / 2.0 + 0.5).clamp(0.0, 1.0)
     return output_uint8(frames) if cfg.output_uint8 else frames
+
+
+def _decode_sharded(models: AnimationModels, latents, cfg: PipelineConfig, mesh):
+    """The decode over a mesh: chunk k (of decode_chunk_size frames, the
+    last one shorter as in `decode_frames`) on the rank at flat index
+    k mod size, each chunk its own VAE call, so every chunk's temporal
+    context is local; then every rank's chunks are gathered on every rank
+    (padded to whole chunks for the all-gather)."""
+    f = latents.shape[1]
+    chunk = min(cfg.decode_chunk_size, f)
+    starts = list(range(0, f, chunk))
+    n, me = mesh.size, mesh.axis_index(AXES)
+    z = latents[0] / models.vae.config.scaling_factor
+    scale = 2 ** (len(models.vae.config.block_out_channels) - 1)
+    per = -(-len(starts) // n)
+    buf = torch.zeros((per, chunk, z.shape[1] * scale, z.shape[2] * scale, 3),
+                      dtype=module_dtype(models.vae.decoder), device=z.device)
+    with use_mesh(None):
+        for j, s in enumerate(starts[me::n]):
+            k = min(chunk, f - s)
+            buf[j, :k] = models.vae.decode(z[s:s + k], num_frames=k)
+    parts = Sharding(mesh, (AXES,)).gather(buf[None])          # [size, per, chunk, ...]
+    frames = [parts[k % n, k // n, :min(chunk, f - s)] for k, s in enumerate(starts)]
+    return _to_frames(torch.cat(frames), cfg)
 
 
 def _decode_group_size(cfg: PipelineConfig, f: int, h8: int, w8: int) -> int:
@@ -377,14 +449,14 @@ def _decode_group(models: AnimationModels, latents, start: int, cfg: PipelineCon
     return decode_frames(models, latents[:, start:start + group], cfg), start + group
 
 
-def _decode_dispatched(models: AnimationModels, latents, cfg: PipelineConfig):
+def _decode_dispatched(models: AnimationModels, latents, cfg: PipelineConfig, mesh=None):
     """Decode a long video in groups of `_decode_group_size` frames, each one
-    batched VAE call; a short one in one `decode_frames`. The frames stay on
-    the device."""
+    batched VAE call; a short one, or any under a mesh, in one
+    `decode_frames`. The frames stay on the device."""
     f = latents.shape[1]
     per = _decode_group_size(cfg, f, latents.shape[2], latents.shape[3])
-    if f <= per:
-        return decode_frames(models, latents, cfg)
+    if mesh is not None or f <= per:
+        return decode_frames(models, latents, cfg, mesh)
     outs, start = [], 0
     while start < f:
         out, start = _decode_group(models, latents, start, cfg, min(per, f - start))
@@ -410,12 +482,9 @@ def _to_sym(x):
     return x
 
 
-def _check_slice(mesh) -> None:
-    """Raise for what the port does not cover yet, naming the ROADMAP item
-    that brings it."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device generate (mesh) is not ported yet: "
-                                  "ROADMAP queue 1 item 11d")
+def _check_mesh(mesh, device: torch.device) -> None:
+    if mesh is not None and mesh.device.type != device.type:
+        raise ValueError(f"the mesh runs on {mesh.device}, generate asked for {device}")
 
 
 def _mark(timings: dict | None, name: str | None, t0: float,
@@ -474,19 +543,19 @@ def _prepare_denoise_state(models: AnimationModels, ref_image, pose_pixels, face
 
 def _denoise_segment(models: AnimationModels, latents, context, image_latents, add_time_ids,
                      pose_latents, cfg: PipelineConfig, step_start: int, num_steps: int,
-                     face_opt=None):
+                     face_opt=None, mesh=None):
     """`num_steps` Euler steps from schedule index `step_start`; returns
     (latents, step_start + num_steps)."""
     schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=latents.device)
     latents = denoise(models, latents, context, image_latents, add_time_ids, pose_latents,
                       schedule, cfg, step_start=step_start, num_steps=num_steps,
-                      face_opt=face_opt)
+                      face_opt=face_opt, mesh=mesh)
     return latents, step_start + num_steps
 
 
 def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd: int,
                         device: torch.device, progress=None, timings: dict | None = None,
-                        face_opt=None):
+                        face_opt=None, mesh=None):
     """The Euler loop of `state` (from `_prepare_denoise_state`) in segments
     of `spd` steps, then `_decode_dispatched`. progress: optional
     callable(done_steps, total_steps), called after each segment is
@@ -497,11 +566,12 @@ def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd
     done = 0
     while done < n:
         latents, done = _denoise_segment(models, latents, context, image_latents, add_time_ids,
-                                         pose_latents, cfg, done, min(spd, n - done), face_opt)
+                                         pose_latents, cfg, done, min(spd, n - done), face_opt,
+                                         mesh)
         if progress is not None:
             progress(done, n)
     t0 = _mark(timings, "denoise", t0, device)
-    frames = _decode_dispatched(models, latents, cfg)
+    frames = _decode_dispatched(models, latents, cfg, mesh)
     _mark(timings, "decode", t0, device)
     return frames
 
@@ -534,7 +604,7 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
              init_noise=None, generator: torch.Generator | None = None,
              face_opt=None, mesh=None, device: torch.device | str = "cuda",
              timings: dict | None = None, progress=None):
-    """Generate an animation on one device.
+    """Generate an animation on one device, or on this rank of `mesh`.
 
     ref_image:      [1, H, W, 3] fp32 in [0, 1], or uint8
     pose_pixels:    [F, H, W, 3] fp32 in [-1, 1], or uint8
@@ -548,6 +618,10 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
     face_opt:       optional pipeline.face_opt.FaceOptimizer: the HJB identity
                     refinement of x0_hat at every Euler update (it also
                     halves the segmented path's step budget)
+    mesh:           optional parallel.mesh.Mesh: every rank of it calls
+                    generate with the same inputs and models
+                    (parallel.shard_params makes the weights equal) and
+                    gets the same frames
     timings:        optional dict that receives seconds per phase
                     (conditioning, pose, denoise, decode)
     progress:       optional callable(done_steps, total_steps), called after
@@ -564,20 +638,23 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
     f = pose_pixels.shape[0]
     cfg = dataclasses.replace(cfg, height=ref_image.shape[1], width=ref_image.shape[2],
                               num_frames=f, tile_size=min(cfg.tile_size, f))
-    _check_slice(mesh)
+    _check_mesh(mesh, device)
     spd = resolve_steps_per_dispatch(cfg, face_opt is not None)
-    state = _prepare_denoise_state(models, ref_image, pose_pixels, face_embedding, cfg, device,
-                                   clip_image=clip_image, aug_noise=aug_noise,
-                                   init_noise=init_noise, generator=generator, timings=timings)
-    if spd is not None:
-        return _generate_segmented(models, state, cfg, spd, device, progress, timings, face_opt)
-    t0 = _mark(timings, None, 0.0, device)
-    schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
-    latents = denoise(models, *state, schedule, cfg, face_opt=face_opt)
-    t0 = _mark(timings, "denoise", t0, device)
-    frames = decode_frames(models, latents, cfg)
-    _mark(timings, "decode", t0, device)
-    return frames
+    with use_mesh(mesh):
+        state = _prepare_denoise_state(models, ref_image, pose_pixels, face_embedding, cfg,
+                                       device, clip_image=clip_image, aug_noise=aug_noise,
+                                       init_noise=init_noise, generator=generator,
+                                       timings=timings)
+        if spd is not None:
+            return _generate_segmented(models, state, cfg, spd, device, progress, timings,
+                                       face_opt, mesh)
+        t0 = _mark(timings, None, 0.0, device)
+        schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
+        latents = denoise(models, *state, schedule, cfg, face_opt=face_opt, mesh=mesh)
+        t0 = _mark(timings, "denoise", t0, device)
+        frames = decode_frames(models, latents, cfg, mesh)
+        _mark(timings, "decode", t0, device)
+        return frames
 
 
 def _build_forward_kernels() -> list[str]:
@@ -616,10 +693,13 @@ def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
       face-opt request, whose segments are half as long, executed through
       its refinement.
 
+    mesh: the mesh `generate` will run on; the execution runs on it (every
+      rank calls warm_generate), and the decode is then one sharded call.
+
     Returns {"path", "programs", "executed", "face_opt"}, as the JAX
     package's does."""
     device = resolve_device(device)
-    _check_slice(mesh)
+    _check_mesh(mesh, device)
     if device.type == "cuda":
         _build_forward_kernels()
     cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, cfg.num_frames))
@@ -632,7 +712,7 @@ def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
     n = cfg.num_inference_steps
     seg_lengths = sorted({min(spd, n)} | ({n % spd} if n % spd else set()), reverse=True)
     per = _decode_group_size(cfg, f, h // 8, w // 8)
-    group_sizes = ([f] if f <= per else
+    group_sizes = ([f] if f <= per or mesh is not None else
                    sorted({per} | ({f % per} if f % per else set()), reverse=True))
     programs = 1 + len(seg_lengths) + len(group_sizes)
     do_exec = execute in ("auto", True)
@@ -648,10 +728,12 @@ def warm_generate(models: AnimationModels, cfg: PipelineConfig, *,
             aug_noise=torch.zeros((1, h, w, 3), device=device),
             init_noise=torch.zeros((1, cfg.tile_size, h // 8, w // 8, 4), device=device))
         latents = state[0]
-        for k in seg_lengths:
-            latents, _ = _denoise_segment(models, latents, *state[1:], cfg, 0, k, face_opt)
-        for g in group_sizes:
-            _decode_group(models, latents, 0, cfg, g)
+        with use_mesh(mesh):
+            for k in seg_lengths:
+                latents, _ = _denoise_segment(models, latents, *state[1:], cfg, 0, k, face_opt,
+                                              mesh)
+            for g in group_sizes:
+                decode_frames(models, latents[:, :g], cfg, mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     return {"path": "segmented", "programs": programs, "executed": bool(do_exec),

@@ -16,8 +16,9 @@ numpy arrays.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import os
-import queue
 import re
 import threading
 from typing import Dict, List, Optional, Sequence
@@ -79,11 +80,18 @@ class AnimationDataset:
         self._embed_cache[video_dir] = emb
         return emb
 
-    def sample(self) -> Dict[str, np.ndarray]:
+    def draw(self) -> tuple:
+        """The random choices of one sample: (video, start, reference)."""
         with self._lock:
             video_idx = int(self.rng.integers(len(self.video_dirs)))
             r_start = self.rng.random()
             r_ref = self.rng.random()
+        return video_idx, r_start, r_ref
+
+    def sample(self, drawn: tuple) -> Dict[str, np.ndarray]:
+        """Load one sample: the clip and reference that `drawn` (from
+        `draw`) chose."""
+        video_idx, r_start, r_ref = drawn
         video_dir = self.video_dirs[video_idx]
         images = _frames_in(os.path.join(video_dir, "images"))
         poses = _frames_in(os.path.join(video_dir, "poses"))
@@ -109,49 +117,46 @@ class AnimationDataset:
             "face_mask": masks,
         }
 
-    def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
-        samples = [self.sample() for _ in range(batch_size)]
+    def load(self, draws: Sequence[tuple], rows: Sequence[int] | None = None
+             ) -> Dict[str, np.ndarray]:
+        """The batch of `draws`, or of its `rows` only."""
+        picked = draws if rows is None else [draws[i] for i in rows]
+        samples = [self.sample(d) for d in picked]
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 class PrefetchLoader:
-    """Threaded prefetch: overlaps host-side PNG decode/augment with device
-    steps (the reference delegates this to torch DataLoader workers,
-    --num_workers=8; command_train.sh:10)."""
+    """Prefetch: overlaps host-side PNG decode with device steps (the
+    reference delegates this to torch DataLoader workers, --num_workers=8;
+    command_train.sh:10). Batches are drawn in order in the caller's thread
+    (`sampler.plan`) and loaded by a pool, so the k-th batch is the k-th
+    draw whatever the threads do: every rank of a data-parallel run draws
+    the same global batches and loads only its `rows` of each."""
 
     def __init__(self, sampler, batch_size: int, num_workers: int = 4,
-                 prefetch: int = 4):
+                 prefetch: int = 4, rows: Sequence[int] | None = None):
         self._sampler = sampler
         self._batch_size = batch_size
-        self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
-        self._stop = threading.Event()
-        self._threads = [
-            threading.Thread(target=self._worker, daemon=True)
-            for _ in range(num_workers)
-        ]
-        for t in self._threads:
-            t.start()
+        self._rows = rows
+        self._prefetch = prefetch
+        self._pool = concurrent.futures.ThreadPoolExecutor(max(1, num_workers))
+        self._pending: collections.deque = collections.deque()
+        self._fill()
 
-    def _worker(self):
-        while not self._stop.is_set():
-            try:
-                batch = self._sampler.batch(self._batch_size)
-            except Exception as e:  # surface loader errors to the consumer
-                batch = e
-            self._queue.put(batch)
-            if isinstance(batch, Exception):
-                return
+    def _fill(self):
+        while len(self._pending) < self._prefetch:
+            bucket, draws = self._sampler.plan(self._batch_size)
+            self._pending.append(self._pool.submit(bucket.load, draws, self._rows))
 
     def next(self):
-        item = self._queue.get()
-        if isinstance(item, Exception):
-            raise item
-        return item
+        batch = self._pending.popleft().result()
+        self._fill()
+        return batch
 
     def close(self):
-        self._stop.set()
-        while not self._queue.empty():
-            self._queue.get_nowait()
+        for f in self._pending:
+            f.cancel()
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 class MixedResolutionSampler:
@@ -166,6 +171,11 @@ class MixedResolutionSampler:
             raise ValueError("need at least one dataset bucket")
         self.rng = np.random.default_rng(seed)
 
-    def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+    def plan(self, batch_size: int) -> tuple:
+        """(bucket, its draws) of the next batch."""
         bucket = self.buckets[int(self.rng.integers(len(self.buckets)))]
-        return bucket.batch(batch_size)
+        return bucket, [bucket.draw() for _ in range(batch_size)]
+
+    def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        bucket, draws = self.plan(batch_size)
+        return bucket.load(draws)

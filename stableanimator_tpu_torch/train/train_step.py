@@ -33,6 +33,15 @@ Random draws: the JAX step takes five from one key (the VAE posterior
 sample eps0, the reference image's noise augmentation, the dropout keep
 mask, the sigmas' normal draw, the latent noise). `noises` hands them over
 (the tests pass JAX's own); otherwise they come from `generator`.
+
+Data parallelism (`mesh`, parallel/mesh.py; the data axis only, as the JAX
+CLI trains): every rank runs its rows of the global batch, with its rows of
+the global batch's draws, so the step is the one-device step on the global
+batch. The gradients are mean-reduced over the data axis before anything
+else; every rank then holds the same gradients, masters and models. ZeRO-1
+(`create_train_state(mesh=)`): AdamW keeps moments for, and updates, this
+rank's block of each master only (`parallel.shard_optimizer_state`); the
+blocks are then all-gathered into the full masters.
 """
 
 from __future__ import annotations
@@ -52,6 +61,15 @@ from stableanimator_tpu_torch.diffusion.scheduler import (
 )
 from stableanimator_tpu_torch.models.clip import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from stableanimator_tpu_torch.ops.resize import resize_antialias
+from stableanimator_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    FRAME_AXIS,
+    all_reduce_mean,
+    batch_sharding,
+    gather_masters,
+    shard_optimizer_state,
+    zero_sharding_for,
+)
 from stableanimator_tpu_torch.pipeline.animation import AnimationModels, _mark, cast_models
 
 DEFAULT_TRAINABLE = ("unet", "pose_net", "face_encoder")
@@ -66,7 +84,8 @@ def lr_at(cfg: TrainConfig, update: int) -> float:
 
 
 def make_optimizer(masters: list[torch.Tensor], cfg: TrainConfig) -> torch.optim.AdamW:
-    """AdamW over the fp32 master parameters; the lr is set per update."""
+    """AdamW over the fp32 master parameters (or this rank's blocks of
+    them); the lr is set per update."""
     return torch.optim.AdamW(masters, lr=lr_at(cfg, 0), betas=(cfg.adam_beta1, cfg.adam_beta2),
                              eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
 
@@ -84,6 +103,13 @@ class TrainState:
     updates: int = 0                 # optimizer updates applied (the schedule's count)
     mini_step: int = 0               # calls into the current accumulation window
     grad_acc: list[torch.Tensor] | None = None   # the window's running mean gradient
+    mesh: object = None              # ZeRO-1 over its data axis (the optimizer holds blocks)
+
+    def _zero(self):
+        """Each master's ZeRO-1 sharding, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        return [zero_sharding_for(m, self.mesh, DATA_AXIS) for m in self.masters]
 
     def master_state_dicts(self) -> dict[str, dict[str, torch.Tensor]]:
         """The fp32 masters as one state dict per trained model."""
@@ -94,10 +120,18 @@ class TrainState:
         return out
 
     def state_dict(self) -> dict:
+        """The one-device format under any mesh: ZeRO-1's moment blocks are
+        gathered into whole moments (a collective: every rank calls it and
+        gets the same dict), so a checkpoint resumes under any world size."""
+        opt = self.optimizer.state_dict()
+        zero = self._zero()
+        if zero is not None:
+            opt["state"] = {i: {k: (zero[i].gather(v) if k in ("exp_avg", "exp_avg_sq") else v)
+                                for k, v in st.items()} for i, st in opt["state"].items()}
         return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
                 "trainable": list(self.trainable),
                 "masters": dict(zip(self.names, self.masters)),
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": opt,
                 "grad_acc": (dict(zip(self.names, self.grad_acc))
                              if self.grad_acc is not None else None)}
 
@@ -107,7 +141,14 @@ class TrainState:
             raise ValueError(f"checkpoint trains {sd['trainable']}, this run {self.trainable}")
         for name, m in zip(self.names, self.masters):
             m.copy_(sd["masters"][name])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        opt = sd["optimizer"]
+        zero = self._zero()
+        if zero is not None:          # this rank's blocks of the whole moments
+            opt = dict(opt, state={
+                int(i): {k: (zero[int(i)].local(v.to(self.masters[int(i)].device)).clone()
+                             if k in ("exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
+                for i, st in opt["state"].items()})
+        self.optimizer.load_state_dict(opt)
         self.step, self.updates, self.mini_step = sd["step"], sd["updates"], sd["mini_step"]
         self.grad_acc = ([sd["grad_acc"][n].to(m.device) for n, m in zip(self.names, self.masters)]
                          if sd["grad_acc"] is not None else None)
@@ -115,11 +156,12 @@ class TrainState:
 
 
 def create_train_state(models: AnimationModels, cfg: TrainConfig,
-                       trainable_keys=DEFAULT_TRAINABLE) -> TrainState:
+                       trainable_keys=DEFAULT_TRAINABLE, mesh=None) -> TrainState:
     """Keep fp32 masters of the trainable models' parameters (build the
     models in fp32 to keep a checkpoint's full precision), store the models
     in the compute dtype (bf16 for mixed_precision "bf16", else fp32), and
-    set requires_grad on the trainable parameters only."""
+    set requires_grad on the trainable parameters only. mesh: ZeRO-1 over
+    its data axis (the optimizer over this rank's blocks of the masters)."""
     trainable = tuple(trainable_keys)
     unknown = set(trainable) - set(AnimationModels._fields)
     if unknown:
@@ -133,7 +175,8 @@ def create_train_state(models: AnimationModels, cfg: TrainConfig,
     for key in AnimationModels._fields:
         getattr(models, key).requires_grad_(key in trainable)
     params = [p for key in trainable for p in getattr(models, key).parameters()]
-    return TrainState(0, trainable, names, params, masters, make_optimizer(masters, cfg))
+    held = masters if mesh is None else shard_optimizer_state(masters, mesh, DATA_AXIS)
+    return TrainState(0, trainable, names, params, masters, make_optimizer(held, cfg), mesh=mesh)
 
 
 def _autograd_for(module: nn.Module):
@@ -156,9 +199,12 @@ def _encode_context(models: AnimationModels, ref_image, face_embedding):
 
 
 def draw_noises(batch: dict, latent_channels: int, conditioning_dropout_prob: float,
-                sched: SchedulerConfig, generator: torch.Generator | None) -> dict:
-    """The step's five random draws (see the module docstring)."""
+                sched: SchedulerConfig, generator: torch.Generator | None,
+                batch_size: int | None = None) -> dict:
+    """The step's five random draws (see the module docstring), for
+    `batch_size` clips (default the batch's)."""
     b, f, hh, ww, _ = batch["frames"].shape
+    b = batch_size or b
     dev = batch["frames"].device
 
     def randn(*shape):
@@ -263,30 +309,46 @@ def _copy_masters(state: TrainState) -> None:
 @torch.no_grad()
 def _apply_update(state: TrainState, grads: list[torch.Tensor], cfg: TrainConfig) -> None:
     """optax.clip_by_global_norm, then AdamW at the scheduled lr, on the fp32
-    masters; then the models' copies."""
+    masters (under ZeRO-1 on this rank's blocks, then gathered); then the
+    models' copies."""
     norm = global_norm(grads)
     clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm), cfg.max_grad_norm / norm)
-    for m, g in zip(state.masters, grads):
-        m.grad = g * clip
+    held = state.optimizer.param_groups[0]["params"]
+    zero = state._zero()
+    for i, (p, g) in enumerate(zip(held, grads)):
+        p.grad = (g if zero is None else zero[i].local(g)) * clip
     state.optimizer.param_groups[0]["lr"] = lr_at(cfg, state.updates)
     state.optimizer.step()
-    for m in state.masters:
-        m.grad = None
+    for p in held:
+        p.grad = None
+    if state.mesh is not None:
+        gather_masters(state.masters, state.mesh, DATA_AXIS)
     state.updates += 1
     _copy_masters(state)
 
 
 def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineConfig,
-                    conditioning_dropout_prob: float = 0.1, encode_chunk: int = 4):
+                    conditioning_dropout_prob: float = 0.1, encode_chunk: int = 4, mesh=None):
     """The training step: step_fn(state, batch, *, noises=None,
     generator=None, timings=None) -> (state, metrics). It updates `state`
     in place and returns it with {"loss", "grad_norm"} (fp32 scalars on
     the device; grad_norm is the raw gradients' global norm, before
     accumulation and clipping). timings, when given, receives the seconds
     of "encode" (frozen VAE), "forward_backward" (the rest of the loss and
-    its backward) and "optimizer" (upcast, accumulation, clipping, AdamW,
-    the copy to the models); the device is synchronised at each boundary."""
+    its backward) and "optimizer" (upcast, the gradients' all-reduce under
+    a mesh, accumulation, clipping, AdamW, the copy to the models); the
+    device is synchronised at each boundary.
+
+    mesh: data parallelism over its data axis. `batch` is then this rank's
+    rows of the global batch (`parallel.batch_sharding(mesh).local`),
+    `noises` the global batch's draws (sliced here) and the generator draws
+    the global batch's; the metrics are the global batch's. The state must
+    come from `create_train_state(..., mesh=mesh)`."""
     k = cfg.gradient_accumulation_steps
+    if mesh is not None and mesh.shape[FRAME_AXIS] > 1:
+        raise NotImplementedError("training over the frame axis is not ported: ROADMAP "
+                                  "queue 1 item 11g")
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
 
     def step_fn(state: TrainState, batch: dict, *, noises: dict | None = None,
                 generator: torch.Generator | None = None, timings: dict | None = None):
@@ -294,6 +356,12 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
         for p in state.params:
             p.grad = None
         t0 = _mark(timings, None, 0.0, device)
+        if mesh is not None:
+            if noises is None:
+                noises = draw_noises(batch, models.vae.config.latent_channels,
+                                     conditioning_dropout_prob, SchedulerConfig(), generator,
+                                     batch_size=batch["frames"].shape[0] * n_data)
+            noises = {key: batch_sharding(mesh, v.ndim).local(v) for key, v in noises.items()}
         loss = train_loss(models, batch, cfg, pipe,
                           conditioning_dropout_prob=conditioning_dropout_prob,
                           encode_chunk=encode_chunk, noises=noises, generator=generator,
@@ -306,6 +374,9 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
         for p, m in zip(state.params, state.masters):
             grads.append(p.grad.float() if p.grad is not None else torch.zeros_like(m))
             p.grad = None
+        loss = loss.detach()
+        if mesh is not None:
+            all_reduce_mean(grads + [loss.reshape(1)], mesh, DATA_AXIS)
         grad_norm = global_norm(grads)
         if k > 1:
             if state.grad_acc is None:
@@ -323,6 +394,6 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
         del grads
         state.step += 1
         _mark(timings, "optimizer", t0, device)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn

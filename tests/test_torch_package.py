@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
                     "preproc.wholebody", "preproc.native_raster", "preproc.skeleton_render",
                     "preproc.skeleton_extraction", "preproc.pose_worker",
                     "preproc.legacy_detectors", "cli.extract_skeleton",
-                    "cli.extract_training_skeletons"):
+                    "cli.extract_training_skeletons", "ops.gate", "ops.quant",
+                    "parallel.mesh", "parallel.sequence", "core.trace"):
             assert "stableanimator_tpu_torch." + mod in names, mod
         assert not bad, bad
     """)
@@ -150,6 +151,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         wholebody.WholebodyDetector("none.onnx", "none.onnx")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         legacy_detectors.DWposeDetector("none.onnx", "none.onnx")
+    from stableanimator_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        animation.build_models(**micro_model_kwargs(), quant=True)
+    quantized = animation.build_models(**micro_model_kwargs(), device="cpu", quant=True)
+    assert next(quantized.unet.parameters()).device.type == "cpu"
 
 
 def _paths(tree, prefix=()):

@@ -119,17 +119,36 @@ def _face_opt():
                          arcface, decode, np.ones((8,), np.float32), np.zeros((4, 2), np.int32))
 
 
-# face_opt (ROADMAP item 9) is ported: the case that raised now runs; the
-# mesh (item 11d) still raises
+# face_opt (ROADMAP item 9) and the mesh (item 11d) are ported: the cases
+# that raised now run (the mesh's in a world of one process; more ranks in
+# tests/test_torch_mesh.py)
 @pytest.mark.parametrize("kw,match", [
     pytest.param("face_opt", None, id="kw0-item 9"),
-    pytest.param(dict(mesh=object()), "item 11d", id="kw1-item 11"),
+    pytest.param("mesh", None, id="kw1-item 11"),
 ])
 def test_outside_the_slice_raises(micro, kw, match):
     _, _, pm = micro
     ref, pose, face = (torch.from_numpy(x) for x in _inputs(4, seed=0))
     cfg = PipelineConfig(tile_size=4, tile_overlap=1, num_inference_steps=2,
                          decode_chunk_size=2)
+    if kw == "mesh":
+        import torch.distributed as dist
+
+        from stableanimator_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device="cpu")          # a gloo world of one, in memory
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            assert mesh.shape == {"data": 1, "frame": 1}
+            sharded = generate(pm, ref, pose, face, cfg, device="cpu", mesh=mesh)
+            plain = generate(pm, ref, pose, face, cfg, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+            dist.destroy_process_group()
+        # one rank: every sharding is the identity, no collective runs
+        torch.testing.assert_close(sharded, plain, rtol=0, atol=0)
+        return
     if match is None:
         threads = torch.get_num_threads()
         torch.set_num_threads(1)   # small shapes: other test workers hold the cores
