@@ -20,7 +20,10 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            if one of those five kernels uses other than its launch-bound
            register count (setmaxnreg needs it), if HGMMA or UTMALDG is
            missing from one of their instantiations, or if the forward's
-           library still holds the mma.sync kernel (flash_fwd_kernel)
+           library still holds the mma.sync kernel (flash_fwd_kernel); lists
+           the d = 512 backward pair as what it is (mma.sync: registers and
+           its SASS's HMMA, HGMMA and TMA counts) and fails if its HMMA is
+           missing
   kernels  the streamed forward kernels against their plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
            at ragged and fp16 shapes, with the d = 64 and d = 512 kernels'
@@ -33,7 +36,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            cluster whose last CTA has no q rows, fused QKV views, fp16 at
            UNet level 1); the backward kernels (through the autograd Function)
            against the plain backward within `grad_tolerance` at the
-           training shapes and ragged bf16/fp16 ones; then every kernel
+           training shapes and ragged bf16/fp16 ones, the d = 512 pair at the
+           face-opt crops 23 (529 tokens), 24 and 32 (fp16 too) and q 200 x
+           kv 1024; then every kernel
            timed with CUDA events at the paths' shapes beside its bound, its
            plain version and the PyTorch library call (the resident one
            beside the streamed one too); the forwards'
@@ -42,7 +47,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the products it issues and the time of its bytes out of L2 at the
            probe's rate; the
            backward's beside their earlier design's times and the bound of
-           the products they issue (P and dS split in two)
+           the products they issue (P and dS split in two), the d = 512
+           pair's at crops 24 and 32
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   face     the ONNX -> torch executor on the card: an iresnet100 stand-in
@@ -79,8 +85,17 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            decodes stay off the kernel) asserted, frames finite in [0, 1]
            and unlike the plain request's, the overhead over it and the
            identity cost before and after the refine at step 8 printed;
-           then the micro CLI with --face_optimize_steps 1 and the stand-in
-           antelopev2 files
+           then the same request at crop 32 (a 256-px face crop: each
+           refine runs the d = 512 forward with lse and the d = 512 backward
+           pair), 10 x steps + 1 + 17 forward and 17 + 17 d = 512 backward
+           launches asserted, the rest as at crop 16; then the micro CLI
+           with --face_optimize_steps 1 and the stand-in antelopev2 files
+  export   the generate phase's full-width UNet through
+           tools/export_model.py (torch.export) at the flat request's call:
+           the kernel's custom op in the graph (10 nodes), the program saved
+           and loaded back in memory launching the kernel (5 + 5 at UNet
+           levels 0 and 1) and within kernel_tolerance of the eager module;
+           export, save and load seconds, ms per call of both
   serve    cli.serve's AnimationService at full width with the stand-in
            antelopev2 files, behind make_handler on 127.0.0.1 in a thread:
            /healthz, two 512x512x16 requests (mp4, json; launches asserted),
@@ -132,7 +147,7 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            their difference from the bf16 request's printed; with profile,
            one quant request under the profiler
 The phases run in the order face, dwpose, generate (with its profile, the
-A/B, faceopt, parallel and quant), serve, longvideo (with the driving
+A/B, faceopt, export, parallel and quant), serve, longvideo (with the driving
 request), train.
 Before the last line it prints one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -141,6 +156,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -162,15 +178,22 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 FWD_KERNEL, BWD_SOURCE = "flash_attention_fwd", "flash_attention_bwd"
 RES_KERNEL = "flash_attention_resident"
 DKV_KERNEL, DQ_KERNEL = "flash_attention_bwd_dkv", "flash_attention_bwd_dq"
-KERNELS = (FWD_KERNEL, RES_KERNEL, DKV_KERNEL, DQ_KERNEL)
+# the d = 512 backward pair (the face optimisation's VAE mid attention)
+DKV512_KERNEL, DQ512_KERNEL = "flash_attention_bwd_dkv_d512", "flash_attention_bwd_dq_d512"
+BWD_KERNELS = (DKV_KERNEL, DQ_KERNEL, DKV512_KERNEL, DQ512_KERNEL)
+KERNELS = (FWD_KERNEL, RES_KERNEL) + BWD_KERNELS
 REPLACES = {FWD_KERNEL: "stableanimator_tpu/ops/flash_attention.py:70",
             RES_KERNEL: "stableanimator_tpu/ops/flash_attention.py:125",
             DKV_KERNEL: "stableanimator_tpu/ops/flash_attention.py:326",
-            DQ_KERNEL: "stableanimator_tpu/ops/flash_attention.py:372"}
+            DQ_KERNEL: "stableanimator_tpu/ops/flash_attention.py:372",
+            DKV512_KERNEL: "stableanimator_tpu/ops/flash_attention.py:326",
+            DQ512_KERNEL: "stableanimator_tpu/ops/flash_attention.py:372"}
 SOURCES = {FWD_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_fwd.cu",
            RES_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_resident.cu",
            DKV_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_bwd.cu",
-           DQ_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_bwd.cu"}
+           DQ_KERNEL: "stableanimator_tpu_torch/csrc/flash_attention_bwd.cu",
+           DKV512_KERNEL: "stableanimator_tpu_torch/csrc/flash_bwd_d512.cuh",
+           DQ512_KERNEL: "stableanimator_tpu_torch/csrc/flash_bwd_d512.cuh"}
 # the resident route's budget in the longvideo phase and the A/B: every
 # UNet attention of a request passes the JAX package's test at 4 MiB
 RESIDENT_BUDGET = 4 * 1024 * 1024
@@ -181,9 +204,14 @@ PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("unet_level1", (32, 1024, 10, 64), False),
                ("vae_mid", (16, 4096, 1, 512), False),
                ("train_level0", (16, 4096, 5, 64), True),
-               ("train_level1", (16, 1024, 10, 64), True))
-# the backward kernels' shapes on the training path
+               ("train_level1", (16, 1024, 10, 64), True),
+               ("faceopt_crop32", (16, 1024, 1, 512), True))
+# the backward kernels' shapes on the training path (d = 64) and on the face
+# optimisation's refines (d = 512: the VAE decoder's mid attention over a
+# 16-frame crop of 24 and of 32 latents; the face-opt request runs crop 32)
 TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)))
+FACEOPT_BWD_SHAPES = (("faceopt_crop24", (16, 576, 1, 512)),
+                      ("faceopt_crop32", (16, 1024, 1, 512)))
 # the resident kernel's checks (each with and without lse): (label, q shape,
 # kv length, dtype, fused); generate's and the
 # 64-frame request's UNet levels (timed too), the training shapes,
@@ -237,6 +265,11 @@ EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
 # on an H100 80GB HBM3 at 700 W; printed beside this run's
 EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.413,
                   "train_level0": 3.449, "train_level1": 0.467}
+# the mma.sync d = 512 backward pair (no wgmma, TMA or warp specialisation):
+# the build phase prints its registers and its SASS's mma.sync (HMMA) and
+# wgmma / TMA counts, and fails on a spill (as for every kernel) or if HMMA
+# is missing
+MMA_SYNC_SYMBOLS = {BWD_SOURCE: ("flash_bwd_dkv_d512_kernel", "flash_bwd_dq_d512_kernel")}
 # the Hopper kernels' symbols by library, and the SASS instructions that
 # show their design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG;
 # the backward stores from registers)
@@ -260,10 +293,12 @@ L2_PROBE_BYTES, L2_PROBE_REPEATS = 16 * 2**20, 32
 # MUFU exponentials per clock per SM
 EXP_PER_CLOCK_PER_SM = 16
 # further backward checks: (label, q shape, kv length, dtype, fused): ragged
-# sequences, and the kernels' edges: a q length off the 64-row q tile (dK/dV)
-# and the 128-row one (dQ) against 4096 keys, kv below and across the 128-row
-# kv block (dK/dV) and off the 64-row kv tile (dQ), q, k, v as strided views
-# of one [B, S, 3, H, D] tensor, fp16 at training level 1
+# sequences, and the d = 64 kernels' edges: a q length off the 64-row q tile
+# (dK/dV) and the 128-row one (dQ) against 4096 keys, kv below and across the
+# 128-row kv block (dK/dV) and off the 64-row kv tile (dQ), q, k, v as
+# strided views of one [B, S, 3, H, D] tensor, fp16 at training level 1; the
+# d = 512 pair at the face-opt crops 23 (529 tokens: off every tile), 24 and
+# 32, fp16 at crop 32, and q 200 x kv 1024
 BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
                     ("ragged_300", (1, 300, 2, 64), 300, torch.float16, False),
                     ("ragged_640_576", (2, 640, 2, 64), 576, torch.bfloat16, False),
@@ -272,17 +307,24 @@ BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
                     ("kv_100", (2, 256, 3, 64), 100, torch.bfloat16, False),
                     ("kv_300", (2, 256, 3, 64), 300, torch.bfloat16, False),
                     ("fused_qkv", (2, 640, 4, 64), 640, torch.bfloat16, True),
-                    ("train_level1_fp16", (16, 1024, 10, 64), 1024, torch.float16, False))
+                    ("train_level1_fp16", (16, 1024, 10, 64), 1024, torch.float16, False),
+                    ("faceopt_crop23", (16, 529, 1, 512), 529, torch.bfloat16, False),
+                    ("faceopt_crop24", (16, 576, 1, 512), 576, torch.bfloat16, False),
+                    ("faceopt_crop32", (16, 1024, 1, 512), 1024, torch.bfloat16, False),
+                    ("faceopt_crop32_fp16", (16, 1024, 1, 512), 1024, torch.float16, False),
+                    ("d512_q200_kv1024", (16, 200, 1, 512), 1024, torch.bfloat16, False))
 # the backward kernels' times per launch with their earlier design
 # (mma.sync, before the wgmma / TMA kernels), measured by this script on an
 # H100 80GB HBM3 at 700 W; printed beside this run's
 EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
                   DQ_KERNEL: {"train_level0": 3.145, "train_level1": 0.434}}
 # products of 2 B H Sq Sk d operations each kernel issues, P and dS fed to
-# the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ
-ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4}
+# the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ;
+# the d = 512 pair recomputes S^T and dP^T for each of its 4 (dK/dV) and 2
+# (dQ) column slices: 4 x 2 + 4 and 2 x 2 + 2
+ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 12, DQ512_KERNEL: 6}
 ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "faceopt",
-              "parallel", "quant", "serve", "longvideo", "train", "profile")
+              "export", "parallel", "quant", "serve", "longvideo", "train", "profile")
 # the parallel phase: the world-of-one mesh request runs the plain request's
 # kernels in the same order on the same inputs, so its frames must equal the
 # generate phase's exactly; the mesh training step's loss and grad_norm must
@@ -303,6 +345,8 @@ CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_sm90_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_sm90_kernel"),
+              ("flash_attention_bwd_dkv_d512", r"flash_bwd_dkv_d512_kernel"),
+              ("flash_attention_bwd_dq_d512", r"flash_bwd_dq_d512_kernel"),
               ("conv", r"conv|cudnn|fprop|dgrad|wgrad|implicit_convolve|winograd"),
               ("gemm", r"gemm|gemv|nvjet|cutlass|xmma|sm90_|cublas|matmul"),
               ("norm/softmax/reduce", r"reduce|softmax|norm|welford"),
@@ -330,7 +374,8 @@ SMALL_TRAIN_RTOL, SMALL_TRAIN_LR = 1e-4, 1e-4
 # recomputation in the backward) and backward once; nothing else launches
 # a kernel (the VAE encode is fp32, CLIP's 257 tokens and UNet level 2 take
 # the plain path)
-TRAIN_LAUNCHES = {FWD_KERNEL: 20, RES_KERNEL: 0, DKV_KERNEL: 10, DQ_KERNEL: 10}
+TRAIN_LAUNCHES = {FWD_KERNEL: 20, RES_KERNEL: 0, DKV_KERNEL: 10, DQ_KERNEL: 10,
+                  DKV512_KERNEL: 0, DQ512_KERNEL: 0}
 TRAIN_TIMED_STEPS = 3
 # the long-video request: 64 frames at tile 16 / overlap 4 are 5 tiles,
 # denoised in groups of 1 (UNet batch 2 x 16, as the flat request's) and
@@ -347,8 +392,11 @@ LONGVIDEO_FRAMES, LONGVIDEO_TILES, LONGVIDEO_DECODE_GROUPS = 64, 5, 4
 # largest while both are right (H100, iresnet100 at batch 16)
 FACE_BATCH, FACE_REL, FACE_REL64 = 16, 1e-4, 1e-9
 # the face-opt request: FaceOptConfig(steps=1) with the JAX package's other
-# defaults (lr 0.1, start step 8, crop 16) refines x0_hat at steps 8..24
-FACEOPT_START = 8
+# defaults (lr 0.1, start step 8, crop 16) refines x0_hat at steps 8..24; then
+# the same at crop 32 (a 256-px face crop), whose decodes put 1024 tokens
+# into the VAE's mid attention: the d = 512 forward (with lse) and backward
+# pair once a refine
+FACEOPT_START, FACEOPT_BIG_CROP = 8, 32
 # the dwpose phase: DWPose's networks at full width (YOLOX-L at batch 16 of
 # 640x640, RTMPose-l at batch 64 of 384x288; seeded stand-ins) through the
 # ONNX executor against their torch modules in fp32 with TF32 off, each
@@ -435,9 +483,9 @@ def _registers(report: str, symbol: str) -> dict:
     return regs
 
 
-def _sass_counts(path, symbol: str) -> dict:
+def _sass_counts(path, symbol: str, ops=SASS_OPS) -> dict:
     """By instantiation of the kernel `symbol` in the built library, the
-    count of each of SASS_OPS in its SASS (cuobjdump -sass)."""
+    count of each of `ops` in its SASS (cuobjdump -sass)."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
@@ -446,7 +494,7 @@ def _sass_counts(path, symbol: str) -> dict:
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
         if symbol in name:
-            counts[name] = {op: func.count(op) for op in SASS_OPS}
+            counts[name] = {op: func.count(op) for op in ops}
     return counts
 
 
@@ -483,6 +531,17 @@ def phase_build():
                     + ", ".join(f"{op} {n}" for op, n in ops.items()))
             if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
                 raise SystemExit(f"{symbol} lacks wgmma or TMA loads in its SASS: {counts}")
+        for symbol in MMA_SYNC_SYMBOLS.get(name, ()):
+            # listed as what it is: mma.sync, no wgmma or TMA
+            regs = _registers(report, symbol)
+            counts = _sass_counts(path, symbol, ("HMMA",) + SASS_OPS)
+            for func, ops in counts.items():
+                log(f"[build] {name} {func[:160]}: mma.sync kernel (no wgmma, TMA or warp "
+                    f"specialisation), {regs.get(func, '?')} registers, 0 spills; SASS "
+                    + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            if not regs or not counts or any(ops["HMMA"] == 0 for ops in counts.values()):
+                raise SystemExit(f"{symbol} missing from {name} or without mma.sync (HMMA): "
+                                 f"registers {regs}, SASS {counts}")
     retired = _sass_counts(paths[FWD_KERNEL], RETIRED_SYMBOL)
     log(f"[build] {FWD_KERNEL}: {len(retired)} instantiations of {RETIRED_SYMBOL} (the mma.sync "
         "kernel) in the library")
@@ -599,14 +658,15 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
         + f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"the backward kernels disagree with the plain backward at {lbl}")
-    return {DQ_KERNEL: errs[0], DKV_KERNEL: max(errs[1:])}
+    dkv, dq = fa.bwd_kernel_names(q.shape[-1])
+    return {dq: errs[0], dkv: max(errs[1:])}
 
 
 def _time_bwd(lbl, shape) -> dict:
-    """CUDA-event times of each backward kernel at a training shape, beside
-    its bound, the plain backward and SDPA's backward; the log line also
-    gives its earlier design's time and the bound of the products it
-    issues."""
+    """CUDA-event times of each backward kernel of the shape's head dim at a
+    training (d = 64) or face-opt (d = 512) shape, beside its bound, the
+    plain backward and SDPA's backward; the log line also gives its earlier
+    design's time (d = 64) and the bound of the products it issues."""
     import math
 
     from stableanimator_tpu_torch.ops import flash_attention as fa
@@ -625,8 +685,9 @@ def _time_bwd(lbl, shape) -> dict:
     sdpa_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(qt, kt, vt), (qt, kt, vt), dot), iters=10)
     io = 2.0 * b * s * h * d                   # bytes of one [B, S, H, D] bf16 tensor
     vec = 4.0 * b * s * h                      # bytes of lse or delta
-    work = {DKV_KERNEL: (8.0 * b * h * s * s * d, 4 * io + 2 * vec + 2 * io),
-            DQ_KERNEL: (6.0 * b * h * s * s * d, 4 * io + 2 * vec + io)}
+    dkv, dq = fa.bwd_kernel_names(d)
+    work = {dkv: (8.0 * b * h * s * s * d, 4 * io + 2 * vec + 2 * io),
+            dq: (6.0 * b * h * s * s * d, 4 * io + 2 * vec + io)}
     rows = {}
     for name, (flops, nbytes) in work.items():
         ms = cuda_ms(launch[name], iters=10)
@@ -635,9 +696,10 @@ def _time_bwd(lbl, shape) -> dict:
         rows[name] = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                           library_ms=sdpa_fb - sdpa_fwd, bound_ms=bound_ms, bound_by=bound_by,
                           tflops=flops / ms / 1e9)
+        earlier = EARLIER_BWD_MS.get(name, {}).get(lbl)
         log(f"[kernels] {name} {lbl} {tuple(shape)} bf16: kernel {ms:.3f} ms "
-            f"({rows[name]['tflops']:.0f} TFLOP/s; earlier design {EARLIER_BWD_MS[name][lbl]:.3f} "
-            f"ms), bound "
+            f"({rows[name]['tflops']:.0f} TFLOP/s; earlier design "
+            f"{'none' if earlier is None else f'{earlier:.3f} ms'}), bound "
             f"{bound_ms:.4f} ms ({bound_by}), issued-product bound {issued_ms:.4f} ms "
             f"({ISSUED_PRODUCTS[name]} products, {issued_ms / ms:.1%} of it); plain "
             f"backward {plain_ms:.2f} ms, sdpa backward {sdpa_fb - sdpa_fwd:.3f} ms "
@@ -702,8 +764,10 @@ def phase_kernels(l2_rate: float):
             second = (f", issued-product bound {flops / PEAK_FLOPS * 1e3:.3f} ms (= the bound), "
                       f"L2-bytes estimate {l2_bytes / l2_rate * 1e3:.3f} ms "
                       f"({l2_bytes / 1e9:.2f} GB at the probe's {l2_rate / 1e12:.3f} TB/s)")
+        earlier = EARLIER_FWD_MS.get(lbl)
         log(f"[kernels] {FWD_KERNEL} {lbl} {tuple(shape)} bf16 lse={with_lse}: kernel {ms:.3f} "
-            f"ms ({row['tflops']:.0f} TFLOP/s; earlier design {EARLIER_FWD_MS[lbl]:.3f} ms), bound "
+            f"ms ({row['tflops']:.0f} TFLOP/s; earlier design "
+            f"{'none' if earlier is None else f'{earlier:.3f} ms'}), bound "
             f"{bound_ms:.3f} ms ({bound_by}){second}, plain {plain_ms:.2f} ms, sdpa "
             f"{lib_ms:.3f} ms")
         rows[FWD_KERNEL].append((lbl, row))
@@ -725,7 +789,7 @@ def phase_kernels(l2_rate: float):
         for name, e in errs.items():
             max_err[name] = max(max_err[name], e)
         torch.cuda.empty_cache()
-    for lbl, shape in TRAIN_SHAPES:
+    for lbl, shape in TRAIN_SHAPES + FACEOPT_BWD_SHAPES:
         q, k, v = _qkv(shape, torch.bfloat16, seed=5)
         errs = _check_bwd(lbl, q, k, v, _qkv(shape, torch.bfloat16, seed=6)[0])
         for name, e in errs.items():
@@ -893,8 +957,7 @@ def _launch_counts() -> dict:
 
     counts = {FWD_KERNEL: flash_attention.launches,
               RES_KERNEL: flash_attention_resident.launches,
-              DKV_KERNEL: flash_attention_bwd.launches[DKV_KERNEL],
-              DQ_KERNEL: flash_attention_bwd.launches[DQ_KERNEL]}
+              **{name: flash_attention_bwd.launches[name] for name in BWD_KERNELS}}
     by_shape = {(FWD_KERNEL, key): n for key, n in flash_attention.launches_by_shape.items()}
     by_shape.update({(RES_KERNEL, key): n
                      for key, n in flash_attention_resident.launches_by_shape.items()})
@@ -1537,21 +1600,42 @@ def _small_faceopt(root: str):
 
 def phase_faceopt(models, cfg, ref, pose, face, gen: dict, plain_frames, face_info: dict):
     """The generate phase's request (same models, inputs and seed) with the
-    HJB face optimiser: FaceOptConfig(steps=1) (lr 0.1, start step 8, crop
-    16), the iresnet100 stand-in as recogniser, its embedding of the
-    reference as target, boxes from the seeded pose renders. Warm-up and
-    timed run; refines, launches, output and the identity cost at step 8
-    checked and printed; then the micro CLI with --face_optimize_steps."""
+    HJB face optimiser: FaceOptConfig(steps=1) (lr 0.1, start step 8), the
+    iresnet100 stand-in as recogniser, its embedding of the reference as
+    target, boxes from the seeded pose renders; at crop 16 (its decodes stay
+    off the kernels), then at crop 32 (each refine runs the d = 512 forward
+    with lse and the d = 512 backward pair). Warm-up and timed run of each;
+    refines, launches, output and the identity cost at step 8 checked and
+    printed; then the micro CLI with --face_optimize_steps."""
+    _small_faceopt(face_info["root"])
+    steps = cfg.num_inference_steps
+    refines = max(steps - FACEOPT_START, 0)
+    plain = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, **{k: 0 for k in BWD_KERNELS}}
+    results = _faceopt_request(models, cfg, ref, pose, face, gen, plain_frames, face_info,
+                               16, plain)
+    big = dict(plain, **{FWD_KERNEL: 10 * steps + 1 + refines, DKV512_KERNEL: refines,
+                         DQ512_KERNEL: refines})
+    results[f"crop{FACEOPT_BIG_CROP}"] = _faceopt_request(
+        models, cfg, ref, pose, face, gen, plain_frames, face_info, FACEOPT_BIG_CROP, big)
+    results["cli"] = _cli_faceopt(face_info["root"])
+    return results
+
+
+def _faceopt_request(models, cfg, ref, pose, face, gen: dict, plain_frames, face_info: dict,
+                     crop: int, want: dict) -> dict:
+    """One face-opt request at latent crop `crop`, warm-up and timed, its
+    launches held to `want` (by kernel); the identity cost at step 8 before
+    the refine and after one step along it."""
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import generate
     from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, make_face_optimizer
     from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
 
-    _small_faceopt(face_info["root"])
     steps = cfg.num_inference_steps
     arc = load_onnx_function(face_info["rec_path"], device="cuda")
-    opt = make_face_optimizer(models, FaceOptConfig(steps=1), arc, face_info["target"], pose,
-                              cfg.height // 8, cfg.width // 8, channel_order="reference")
+    opt = make_face_optimizer(models, FaceOptConfig(steps=1, latent_crop=crop), arc,
+                              face_info["target"], pose, cfg.height // 8, cfg.width // 8,
+                              channel_order="reference")
     refine = opt.refine
     refined_at, probe = [], {}
 
@@ -1564,8 +1648,8 @@ def phase_faceopt(models, cfg, ref, pose, face, gen: dict, plain_frames, face_in
         return out
 
     opt.refine = counting_refine
-    want = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, DKV_KERNEL: 0, DQ_KERNEL: 0}
     plain_sec = gen["timed"]["seconds"]
+    tag = f"[faceopt] crop {crop}"
     results = {}
     for run in ("warm-up", "timed"):
         refined_at.clear()
@@ -1582,26 +1666,28 @@ def phase_faceopt(models, cfg, ref, pose, face, gen: dict, plain_frames, face_in
         finite = bool(torch.isfinite(frames).all())
         lo, hi = frames.min().item(), frames.max().item()
         moved = (frames - plain_frames).abs()
-        log(f"[faceopt] {run}: {total:.2f} s (plain request {plain_sec:.2f} s: overhead "
+        log(f"{tag} {run}: {total:.2f} s (plain request {plain_sec:.2f} s: overhead "
             f"{total - plain_sec:.2f} s, x{total / plain_sec:.3f}); phases "
             + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
             + f"; peak {peak_gb:.1f} GiB; {len(refined_at)} refines (at steps {refined_at}); "
             "launches "
             + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items())
-            + f" (expected {want[FWD_KERNEL]} forward, as the plain request); out "
-            f"{tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}]; against the "
-            f"plain request's frames max|diff| {moved.max().item():.4f} mean "
+            + f" (expected {want}); by shape "
+            + ", ".join(f"{k}: {n}" for k, n in counts["by_shape"].items())
+            + f"; out {tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}]; "
+            f"against the plain request's frames max|diff| {moved.max().item():.4f} mean "
             f"{moved.mean().item():.5f}")
         checks = {
             f"{max(steps - FACEOPT_START, 0)} refines": len(refined_at) == max(steps -
                                                                                FACEOPT_START, 0),
-            "launches as the plain request's": counts["by_kernel"] == want,
+            f"launches {want}": counts["by_kernel"] == want,
             "frames finite in [0, 1]": finite and lo >= 0.0 and hi <= 1.0,
             "frames differ from the plain request's": moved.max().item() > 0.0,
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
-            raise SystemExit(f"the face-opt request ({run}) failed its checks: {failed}")
+            raise SystemExit(f"the face-opt request at crop {crop} ({run}) failed its checks: "
+                             f"{failed}")
         results[run] = dict(seconds=total, phases=timings, peak_gib=peak_gb,
                             refines=len(refined_at), **counts)
     if "x0" in probe:
@@ -1614,12 +1700,72 @@ def phase_faceopt(models, cfg, ref, pose, face, gen: dict, plain_frames, face_in
                 along[lr] = step.identity_cost(step.refine(probe["x0"], FACEOPT_START)).item()
         with torch.inference_mode():
             before = opt.identity_cost(probe["x0"]).item()
-        log(f"[faceopt] identity cost at step {FACEOPT_START}: {before:.6f} before the refine; "
+        log(f"{tag} identity cost at step {FACEOPT_START}: {before:.6f} before the refine; "
             "after one step at lr " + ", ".join(f"{lr:g}: {c:.6f}" for lr, c in along.items()))
         results["identity_cost"] = dict(before=before, after=along)
     del opt.refine      # the counter closes a cycle through opt that would keep the models
-    results["cli"] = _cli_faceopt(face_info["root"])
     return results
+
+
+def phase_export(models, cfg) -> dict:
+    """The generate phase's full-width bf16 UNet through
+    `tools/export_model.py::export_unet` at the flat request's call (the
+    CFG pair of 16 frames at 512x512): the graph holds the kernel's custom
+    op; the program, saved and loaded back (in memory), launches the kernel
+    at both UNet levels and matches the eager module within
+    `kernel_tolerance`. Export, save and load seconds, and the two modules'
+    times per call."""
+    import io
+
+    from stableanimator_tpu_torch.ops import flash_attention as fa
+    from stableanimator_tpu_torch.tools import export_model as em
+
+    unet = models.unet
+    b, f, h8, w8 = 2, cfg.num_frames, cfg.height // 8, cfg.width // 8
+    t0 = time.perf_counter()
+    program = em.export_unet(unet, b, f, h8, w8)
+    t_export = time.perf_counter() - t0
+    ops = collections.Counter(str(n.target) for n in program.graph.nodes
+                              if n.op == "call_function" and
+                              str(n.target).startswith("stableanimator."))
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    t_save, size = time.perf_counter() - t0, buf.getbuffer().nbytes
+    del program
+    buf.seek(0)
+    t0 = time.perf_counter()
+    reloaded = torch.export.load(buf).module()
+    t_load = time.perf_counter() - t0
+    del buf
+    args = em.unet_inputs(unet, b, f, h8, w8, "cuda", seed=1)
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        got = reloaded(*args)
+        torch.cuda.synchronize()
+        by_shape = dict(fa.flash_attention.launches_by_shape)
+        want = unet(*args)
+        share = ((got.float() - want.float()).abs() / fa.kernel_tolerance(want)).max().item()
+        ms = {"eager": cuda_ms(lambda: unet(*args), iters=3, warmup=1),
+              "exported": cuda_ms(lambda: reloaded(*args), iters=3, warmup=1)}
+    expected = {(b * f, h8 * w8, h8 * w8, 5, 64): 5, (b * f, h8 * w8 // 4, h8 * w8 // 4, 10, 64): 5}
+    log(f"[export] full-width UNet at [{b}, {f}, {h8}, {w8}, 8]: export {t_export:.1f} s, save "
+        f"{t_save:.1f} s ({size / 1e9:.2f} GB), load {t_load:.1f} s; custom-op nodes "
+        f"{dict(ops)}; the reloaded program's flash launches {by_shape} (expected {expected}); "
+        f"output {tuple(got.shape)} {str(got.dtype)[6:]}, max |reloaded - eager| "
+        f"{(got.float() - want.float()).abs().max().item():.3e}, {share:.3f} of "
+        f"kernel_tolerance; ms per call eager {ms['eager']:.1f}, exported {ms['exported']:.1f}")
+    checks = {"the custom op in the graph": ops.get("stableanimator.flash_attention_fwd.default", 0)
+              == 10,
+              "kernel launches from the reloaded program": by_shape == expected,
+              "output within kernel_tolerance of the eager module": share <= 1.0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the exported UNet failed its checks: {failed}")
+    del reloaded
+    torch.cuda.empty_cache()
+    return dict(export_s=t_export, save_s=t_save, load_s=t_load, bytes=size, ms=ms,
+                max_share=share)
 
 
 def _cli_faceopt(root: str) -> dict:
@@ -1722,7 +1868,7 @@ def phase_serve(root: str, gen: dict | None, steps: int) -> dict:
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     gen_sec = gen["timed"]["seconds"] if gen else float("nan")
-    want = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, DKV_KERNEL: 0, DQ_KERNEL: 0}
+    want = {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0, **{k: 0 for k in BWD_KERNELS}}
     results = {"requests": []}
     try:
         addr = httpd.server_address
@@ -2227,12 +2373,15 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
     by the launches the main paths made at those shapes (generate's timed
     request, the timed face-opt request, the mesh request and the mesh
     training step, the timed quant request, the server's first request, the
-    64-frame CLI request and one timed training step)."""
+    64-frame CLI request, one timed training step and the timed face-opt
+    request at crop 32)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
     if faceopt:
         paths["faceopt"] = faceopt["timed"]["by_shape"]
+        paths[f"faceopt_crop{FACEOPT_BIG_CROP}"] = (
+            faceopt[f"crop{FACEOPT_BIG_CROP}"]["timed"]["by_shape"])
     if parallel:
         paths["parallel"] = parallel["mesh"]["by_shape"]
         paths["parallel_train"] = parallel["train"]["runs"]["mesh (ZeRO-1)"]["by_shape"]
@@ -2274,10 +2423,10 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
                          else "bytes"),
             "library_ms": total["library_ms"],
             "per_request_of": "sum over the launches of generate's timed request, of the "
-                              "timed face-opt request, of the mesh request and the mesh "
-                              "training step, of the timed quant request, of the server's "
-                              "first request, of the 64-frame CLI request and of one timed "
-                              "training step",
+                              "timed face-opt requests at crops 16 and 32, of the mesh "
+                              "request and the mesh training step, of the timed quant "
+                              "request, of the server's first request, of the 64-frame CLI "
+                              "request and of one timed training step",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -2338,6 +2487,8 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         phase_ab(*state)
         if "faceopt" in phases:
             faceopt = phase_faceopt(*state, gen, plain_frames, face)
+        if "export" in phases:
+            phase_export(*state[:2])
         if "parallel" in phases:
             parallel = phase_parallel(*state, gen, plain_frames)
         if "quant" in phases:

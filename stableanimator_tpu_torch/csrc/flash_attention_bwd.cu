@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 / fp16, head dim 64.
+// Flash-attention backward for Hopper (sm_90a), bf16 / fp16, head dims 64
+// and 512.
 //
 // Replaces the TPU kernels stableanimator_tpu/ops/flash_attention.py::
 // _bwd_dkv_kernel and ::_bwd_dq_kernel (driven there by _flash_bwd). From
@@ -65,10 +66,18 @@
 //  - epilogue: dK (x scale), dV and dQ (x scale) rounded to the input type and
 //    written from registers through the output strides, tail rows dropped.
 //
+// Head dim 512 (the VAE decoder's mid attention, which the face
+// optimisation differentiates) runs another pair, with the same arguments and
+// vectors: flash_bwd_dkv_d512_kernel and flash_bwd_dq_d512_kernel in
+// csrc/flash_bwd_d512.cuh (mma.sync, each CTA one slice of the output's
+// columns), whose note says why the design above does not widen to it.
+//
 // C interface (bound with ctypes): sa_flash_attention_bwd_dkv and
 // sa_flash_attention_bwd_dq return the cudaError_t of the launch
 // (cudaGetLastError), 0 on success, and cudaErrorInvalidValue for a shape
 // they do not take or a layout whose tensor map the CUDA driver refuses.
+// sa_flash_attention_bwd_dkv_d512 and sa_flash_attention_bwd_dq_d512 (the
+// d = 512 pair) take the same arguments and return the same codes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,6 +86,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_d512.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -544,6 +554,38 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaErrorInvalidValue;
 }
 
+// the d = 512 pair: the same arguments (q, k, v, dO read through their
+// strides, no tensor maps)
+int run_d512(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, void* dk, void* dv, int dtype, int b,
+             int sq, int sk, int h, int d, const void* strides, float scale, void* stream) {
+  if (d != bwd512::D || b > 65535 || h > 65535 / bwd512::DKV_SLICES || sq <= 0 || sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  bwd512::Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  long long* dst[21] = {&p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,  &p.v_sb,
+                        &p.v_ss,  &p.v_sh,  &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss,
+                        &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
+  const long long* st = static_cast<const long long*>(strides);
+  for (int i = 0; i < 21; ++i) *dst[i] = st[i];
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)bwd512::launch<__nv_bfloat16>(dkv, p, b, s);
+  if (dtype == 1) return (int)bwd512::launch<__half>(dkv, p, b, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int sa_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -562,4 +604,22 @@ extern "C" int sa_flash_attention_bwd_dq(const void* q, const void* k, const voi
                                          void* stream) {
   return run(false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides, scale,
              stream);
+}
+
+extern "C" int sa_flash_attention_bwd_dkv_d512(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse,
+                                               const void* delta, void* dq, void* dk, void* dv,
+                                               int dtype, int b, int sq, int sk, int h, int d,
+                                               const void* strides, float scale, void* stream) {
+  return run_d512(true, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
+                  scale, stream);
+}
+
+extern "C" int sa_flash_attention_bwd_dq_d512(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse,
+                                              const void* delta, void* dq, void* dk, void* dv,
+                                              int dtype, int b, int sq, int sk, int h, int d,
+                                              const void* strides, float scale, void* stream) {
+  return run_d512(false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
+                  scale, stream);
 }

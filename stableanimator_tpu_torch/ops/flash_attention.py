@@ -18,10 +18,14 @@ Backward: `csrc/flash_attention_bwd.cu` replaces `_bwd_dkv_kernel` and
 o, its lse and the output gradient dO it computes, in fp32,
 P = exp(s - lse), dP = dO V^T, delta = sum(dO * o), dS = P * (dP - delta),
 dK = dS^T (scale q), dV = P^T dO and dQ = scale (dS K), with q * scale not
-rounded (unlike the forward). Head dim 64 only. Both kernels are Hopper
-designs (TMA loads into a ring of tiles, wgmma, a producer warpgroup and two
-consumers); they read lse and delta as [B, H, Sq padded to 64]
-(`bwd_vectors`).
+rounded (unlike the forward). Head dims 64 (the UNet) and 512 (the VAE
+decoder's mid attention, which the face optimisation differentiates at
+latent crops of 23 and up). At d = 64 both kernels are Hopper designs (TMA
+loads into a ring of tiles, wgmma, a producer warpgroup and two consumers);
+at d = 512 a second pair (`csrc/flash_bwd_d512.cuh`: mma.sync, each CTA one
+slice of the output's columns, recomputing S and dP over all of d). Both
+pairs read lse and delta as [B, H, Sq padded to 64] (`bwd_vectors`) and
+count their launches under their own names (`bwd_kernel_names`).
 
 Resident forward: `csrc/flash_attention_resident.cu` replaces
 `_fwd_kernel_resident` (driven there by `_flash_fwd_resident`): the same
@@ -51,6 +55,11 @@ the same functions written with dense PyTorch ops (they materialise the
 S x S logits); any other device raises. `kernel_tolerance` and
 `grad_tolerance` bound how far a correct kernel's outputs may lie from the
 plain versions'.
+
+The forward runs as a custom op (`torch.ops.stableanimator.flash_attention_fwd`
+and `..._fwd_lse`), so that `torch.export` keeps it as one node: a program
+exported from CUDA tensors holds that node and launches the kernel when it
+runs (`tools/export_model.py`).
 """
 
 from __future__ import annotations
@@ -71,7 +80,11 @@ HEAD_DIMS = (64, 512)
 BWD_SOURCE = "flash_attention_bwd"
 DKV_KERNEL = "flash_attention_bwd_dkv"
 DQ_KERNEL = "flash_attention_bwd_dq"
-BWD_HEAD_DIMS = (64,)
+DKV_D512_KERNEL = "flash_attention_bwd_dkv_d512"
+DQ_D512_KERNEL = "flash_attention_bwd_dq_d512"
+# (dK/dV kernel, dQ kernel) by head dim
+BWD_KERNELS = {64: (DKV_KERNEL, DQ_KERNEL), 512: (DKV_D512_KERNEL, DQ_D512_KERNEL)}
+BWD_HEAD_DIMS = tuple(BWD_KERNELS)
 # the backward kernels' streamed tiles: q rows (dK/dV) and kv rows (dQ); lse
 # and delta are padded to a whole number of them
 BWD_TILE = 64
@@ -185,14 +198,17 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels() -> dict:
-    """Build (first use only) and bind the backward's two C entry points.
-    Both take (q, k, v, dO, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d,
-    strides[21], scale, stream), lse and delta as `bwd_vectors` lays them
-    out; dkv leaves dq null, dq leaves dk, dv null."""
+    """Build (first use only) and bind the backward's four C entry points
+    (the d = 64 and d = 512 pairs), by kernel name. Each takes (q, k, v, dO,
+    lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides[21], scale,
+    stream), lse and delta as `bwd_vectors` lays them out; dkv leaves dq
+    null, dq leaves dk, dv null."""
     lib = ctypes.CDLL(str(build.build_kernel(BWD_SOURCE)))
     fns = {}
     for name, symbol in ((DKV_KERNEL, "sa_flash_attention_bwd_dkv"),
-                         (DQ_KERNEL, "sa_flash_attention_bwd_dq")):
+                         (DQ_KERNEL, "sa_flash_attention_bwd_dq"),
+                         (DKV_D512_KERNEL, "sa_flash_attention_bwd_dkv_d512"),
+                         (DQ_D512_KERNEL, "sa_flash_attention_bwd_dq_d512")):
         fn = getattr(lib, symbol)
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
@@ -324,6 +340,18 @@ def _device_of(q: torch.Tensor, what: str) -> str:
 
 
 def _flash_forward(q, k, v, scale: float, with_lse: bool):
+    """The forward through its custom op (`stableanimator::flash_attention_fwd`,
+    or `..._fwd_lse` with the lse), which `torch.export` keeps as one node of
+    the graph; the op runs `_flash_forward_impl`. A device other than the
+    CPU and CUDA raises here (the op's fake version would take a meta
+    tensor)."""
+    _device_of(q, "flash_attention")
+    if with_lse:
+        return torch.ops.stableanimator.flash_attention_fwd_lse(q, k, v, float(scale))
+    return torch.ops.stableanimator.flash_attention_fwd(q, k, v, float(scale))
+
+
+def _flash_forward_impl(q, k, v, scale: float, with_lse: bool):
     """A forward kernel for a CUDA tensor (launched on the current stream
     without synchronising), the plain version for a CPU tensor. CUDA calls
     take the resident kernel when `resident_route` says so; the others the
@@ -353,6 +381,33 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
     flash_attention.launches += 1
     flash_attention.launches_by_shape[(b, sq, k.shape[1], h, d)] += 1
     return (o, lse) if with_lse else o
+
+
+# The forward as two custom ops, so that `torch.export` can trace a model that
+# calls it (it cannot trace the ctypes call) and an exported program launches
+# the kernel when it runs: the ops' fake versions give o's and lse's shapes.
+# The route (kernel or plain version, streamed or resident) is chosen when
+# the op runs, from its tensors' device and the resident budget.
+@torch.library.custom_op("stableanimator::flash_attention_fwd", mutates_args=())
+def _flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    return _flash_forward_impl(q, k, v, scale, False)
+
+
+@_flash_forward_op.register_fake
+def _(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("stableanimator::flash_attention_fwd_lse", mutates_args=())
+def _flash_forward_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_forward_impl(q, k, v, scale, True)
+
+
+@_flash_forward_lse_op.register_fake
+def _(q, k, v, scale):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 def flash_attention_resident(q, k, v, scale: float | None = None, with_lse: bool = False):
@@ -396,9 +451,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float | None = None):
     its output o and lse, and the output gradient dO.
 
     CPU tensors get the plain version at any head dim. CUDA tensors go to
-    the two Hopper kernels (dK/dV, then dQ), launched on the current stream
-    without synchronising; they take head dim 64 only, and another raises
-    NotImplementedError."""
+    the head dim's kernel pair (dK/dV, then dQ; `bwd_kernel_names`),
+    launched on the current stream without synchronising; the kernels take
+    head dims 64 and 512, and another raises NotImplementedError."""
     scale = _default_scale(q, scale)
     if _device_of(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
@@ -406,12 +461,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float | None = None):
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash-attention backward on the card for head dim {d}: the kernels take "
-            f"{BWD_HEAD_DIMS}; the d = 512 backward kernel (the VAE decoder's mid attention) "
-            "is not written yet")
+            f"head dims {BWD_HEAD_DIMS}")
     grads, launch = bwd_launchers(q, k, v, o, lse, do, scale)
-    for name in (DKV_KERNEL, DQ_KERNEL):
+    for name in bwd_kernel_names(d):
         launch[name]()
     return grads
+
+
+def bwd_kernel_names(d: int) -> tuple[str, str]:
+    """The names (dK/dV kernel, dQ kernel) of head dim d's backward pair, under
+    which `flash_attention_bwd.launches` counts them."""
+    if d not in BWD_KERNELS:
+        raise ValueError(f"the backward kernels take head dims {BWD_HEAD_DIMS}, got {d}")
+    return BWD_KERNELS[d]
 
 
 def bwd_vectors(lse: torch.Tensor, delta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -433,8 +495,7 @@ def bwd_launchers(q, k, v, o, lse, do, scale: float):
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernels take head dims {BWD_HEAD_DIMS}, got {d}")
+    dkv_name, dq_name = bwd_kernel_names(d)
     do = do.contiguous()
     for name, t in (("o", o), ("dO", do)):
         if t.shape != q.shape or t.device != q.device:
@@ -465,8 +526,8 @@ def bwd_launchers(q, k, v, o, lse, do, scale: float):
             flash_attention_bwd.launches_by_shape[(name, (b, sq, sk, h, d))] += 1
         return launch
 
-    return (dq, dk, dv), {DKV_KERNEL: launcher(DKV_KERNEL, (None, dk.data_ptr(), dv.data_ptr())),
-                          DQ_KERNEL: launcher(DQ_KERNEL, (dq.data_ptr(), None, None))}
+    return (dq, dk, dv), {dkv_name: launcher(dkv_name, (None, dk.data_ptr(), dv.data_ptr())),
+                          dq_name: launcher(dq_name, (dq.data_ptr(), None, None))}
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -20,7 +20,9 @@ d(similarity)/d(latents) through the real recogniser. Only a per-frame face
 crop of the latent is decoded (the decoder is convolutional), which keeps
 the inner loop cheap: at the default 16-latent crop the decoder's mid
 attention sees 256 keys, below the flash kernel's cut-over, so autograd
-differentiates the plain attention and no kernel launches.
+differentiates the plain attention and no kernel launches. From a 23-latent
+crop (529 keys) on, a refine on the card runs the d = 512 flash forward with
+its lse and the d = 512 backward kernel pair.
 
 `generate` runs under `torch.inference_mode()`; `refine` leaves it, enables
 grad and clones x0_hat (an inference tensor) before differentiating, so

@@ -90,3 +90,35 @@ def test_refine_on_the_card_matches_the_cpu(recogniser):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
     assert _close(out["cuda"][1] - x0.cuda(), out["cpu"][1] - x0)      # the update itself
     assert out["cuda"][2] < out["cuda"][0]
+
+
+def test_full_width_refine_at_crop_24_runs_the_d512_backward(recogniser):
+    # the full-width bf16 VAE decoder on a 24-latent crop: its mid attention
+    # has 576 tokens at d = 512, so the forward is the flash kernel and the
+    # refine's gradient goes through the d = 512 backward pair, once each
+    _card()
+    from stableanimator_tpu_torch.ops import flash_attention as fa
+
+    _, path = recogniser
+    models = build_models(dtype=torch.bfloat16, device="cuda", seed=0)
+    pose = np.full((2, 256, 256, 3), -1.0, np.float32)
+    pose[:, 60:70, 120:130] = 1.0
+    target = np.random.default_rng(3).normal(size=(64,)).astype(np.float32)
+    opt = make_face_optimizer(models, FaceOptConfig(steps=1, lr=0.1, start_step=0,
+                                                    latent_crop=24),
+                              load_onnx_function(path, device="cuda"), target, pose, 32, 32)
+    x0 = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 2, 32, 32, 4))
+                          .astype(np.float32)).cuda()
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        refined = opt.refine(x0, 0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_shape == {(2, 576, 576, 1, 512): 1}
+    assert dict(fa.flash_attention_bwd.launches) == {fa.DKV_D512_KERNEL: 1, fa.DQ_D512_KERNEL: 1}
+    step = refined - x0
+    assert bool(torch.isfinite(step).all()) and step.abs().max().item() > 0
+    # outside the 24 x 24 crops of each frame the gradient is zero
+    y, x = (int(v) for v in opt.face_boxes[0])
+    outside = step[0, 0].clone()
+    outside[y:y + 24, x:x + 24] = 0
+    assert outside.abs().max().item() == 0

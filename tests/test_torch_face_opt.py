@@ -208,6 +208,38 @@ def test_make_face_optimizer_real_pieces_match_jax(micro, order):
     np.testing.assert_array_equal(placeholder.face_boxes, [[2, 2]] * 3)
 
 
+def test_refine_and_its_gradient_at_a_24_latent_crop_match_jax(micro):
+    # latent_crop >= 23 puts crop^2 >= 512 tokens into the decoder's mid
+    # attention, where the card takes the flash kernel and its d = 512
+    # backward (tests/test_torch_face_cuda.py); on the CPU both packages take
+    # the plain attention. A 24 x 24 latent plane, so the crop is the plane.
+    # fp32: the cost within 1e-5 (TOL), the gradient within 1e-4 of its
+    # largest element (576-token attention and a 192-px decode: summation
+    # order only), the refined latents within TOL
+    jm, params, pm, path = micro
+    cfg = dict(steps=1, lr=0.5, start_step=0, latent_crop=24, arcface_size=16)
+    target = np.random.default_rng(5).normal(size=(16,)).astype(np.float32)
+    opt = fo.make_face_optimizer(pm, fo.FaceOptConfig(**cfg), load_onnx_function(path, "cpu"),
+                                 target, None, 24, 24, num_frames=2)
+    jopt = jax_fo.make_face_optimizer(jm, params, jax_fo.FaceOptConfig(**cfg),
+                                      jax_load_onnx_function(path), target, None, 24, 24,
+                                      num_frames=2)
+    assert opt.cfg.latent_crop == 24
+    np.testing.assert_array_equal(opt.face_boxes, np.asarray(jopt.face_boxes))
+    x0 = np.random.default_rng(6).normal(size=(1, 2, 24, 24, 4)).astype(np.float32)
+    x = torch.from_numpy(x0).requires_grad_(True)
+    cost = opt.identity_cost(x)
+    (grad,) = torch.autograd.grad(cost, x)
+    jcost, jgrad = jax.jit(jax.value_and_grad(jopt.identity_cost))(jnp.asarray(x0))
+    assert abs(cost.item() - float(jcost)) <= TOL
+    jgrad = np.asarray(jgrad)
+    assert np.abs(jgrad).max() > 0
+    np.testing.assert_allclose(grad.numpy(), jgrad, rtol=0, atol=1e-4 * np.abs(jgrad).max())
+    # the JAX refine's one step is x0 - lr * its gradient (compiled once above)
+    refined = opt.refine(torch.from_numpy(x0), 0)
+    np.testing.assert_allclose(refined.numpy(), x0 - cfg["lr"] * jgrad, rtol=0, atol=TOL)
+
+
 def _micro_inputs(frames, seed):
     rng = np.random.default_rng(seed)
     return (rng.uniform(size=(1, 64, 64, 3)).astype(np.float32),

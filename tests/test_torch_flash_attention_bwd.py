@@ -214,3 +214,36 @@ def test_grad_tolerance_accepts_the_kernels_rounding_and_rejects_faults(sq, sk, 
     assert dq > 1.0 and dk > 1.0
     assert shares(_emulated_bwd(q, k, v, o, lse, do, double_scale=True))[1] > 1.0
     assert max(shares(_emulated_bwd(q, k, v, o, lse, do, single_part=True))) > 1.0
+
+
+@pytest.mark.parametrize("sq,sk,dtype", [(529, 529, torch.bfloat16),
+                                         (1024, 1024, torch.float16),
+                                         (200, 1024, torch.bfloat16)])
+def test_grad_tolerance_holds_the_d512_kernels_tiling(sq, sk, dtype):
+    # the d = 512 pair (csrc/flash_bwd_d512.cuh): 32-row q tiles (dK/dV) and
+    # 32-row kv tiles (dQ), S and dP reduced over all 512 columns, P and dS as
+    # hi + lo per 16 rows; at the face optimisation's shapes (crop 23: 529
+    # tokens; crop 32: 1024) and q shorter than kv, inside grad_tolerance,
+    # and its faults outside
+    gen = torch.Generator().manual_seed(sq + sk)
+    q = torch.randn((1, sq, 1, 512), generator=gen).to(dtype)
+    k, v = (torch.randn((1, sk, 1, 512), generator=gen).to(dtype) for _ in range(2))
+    do = torch.randn((1, sq, 1, 512), generator=gen).to(dtype)
+    o, lse = fa.flash_attention_reference(q, k, v, with_lse=True)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    bounds = [fa.grad_tolerance(r) for r in ref]
+
+    def shares(got):
+        return [((g.float() - r.float()).abs() / b).max().item()
+                for g, r, b in zip(got, ref, bounds)]
+
+    def emulated(**faults):
+        return _emulated_bwd(q, k, v, o, lse, do, tile=32, kv_tile=32, k_step=16, **faults)
+
+    assert max(shares(emulated())) < 1.0
+    dq, dk, dv = shares(emulated(drop_q_tile=2))
+    assert dk > 1.0 and dv > 1.0
+    dq, dk, dv = shares(emulated(no_delta=True))
+    assert dq > 1.0 and dk > 1.0
+    assert shares(emulated(double_scale=True))[1] > 1.0
+    assert max(shares(emulated(single_part=True))) > 1.0

@@ -1,6 +1,8 @@
 """The port's CUDA flash-attention backward kernels against the plain
-backward, on the card, at the training step's shapes (UNet levels 0 and 1,
-16 frames) and ragged ones; and the autograd route through them.
+backward, on the card: the d = 64 pair at the training step's shapes (UNet
+levels 0 and 1, 16 frames) and ragged ones, the d = 512 pair at the face
+optimisation's (VAE mid attention at latent crops 23, 24 and 32) and its
+edges; and the autograd route through them.
 
 Imports neither JAX nor the test configuration, so it runs on a machine
 with the GPU and no JAX:
@@ -103,13 +105,48 @@ def test_cuda_flash_attention_output_carries_its_gradient():
         assert (g.float() - w).abs().max().item() <= 0.05 * w.abs().max().item()
 
 
+# the d = 512 pair (the VAE decoder's mid attention under the face
+# optimisation, [16 frames, crop^2 tokens, 1, 512]): crop 23 (529 tokens, off
+# every tile), 24 and 32, fp16 at crop 32, q shorter than kv (200 x 1024),
+# two heads with kv off the 32-row tile
+D512_SHAPES = [((16, 529, 1, 512), 529, torch.bfloat16),
+               ((16, 576, 1, 512), 576, torch.bfloat16),
+               ((16, 1024, 1, 512), 1024, torch.bfloat16),
+               ((16, 1024, 1, 512), 1024, torch.float16),
+               ((1, 200, 1, 512), 1024, torch.bfloat16),
+               ((2, 100, 2, 512), 300, torch.bfloat16)]
+
+
 @pytest.mark.cuda
-def test_cuda_backward_refuses_head_dim_512():
-    # the kernels take d = 64; on the card another head dim raises, naming no
-    # queue item (on the CPU the plain backward takes every head dim)
+@pytest.mark.parametrize("shape,sk,dtype", D512_SHAPES)
+def test_cuda_backward_d512_pair_matches_plain_version(shape, sk, dtype):
     _card()
-    q, k, v, do = _inputs((1, 1024, 1, 512), 1024, torch.bfloat16, seed=3)
+    q, k, v, do = _inputs(shape, sk, dtype, seed=4)
     o, lse = fa.flash_attention(q, k, v, with_lse=True)
-    with pytest.raises(NotImplementedError, match="head dim 512") as raised:
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    before = dict(fa.flash_attention_bwd.launches)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]   # through the autograd route
+    got = torch.autograd.grad(fa.flash_attention(*qkv), qkv, do)
+    torch.cuda.synchronize()
+    for name in (fa.DKV_D512_KERNEL, fa.DQ_D512_KERNEL):
+        assert fa.flash_attention_bwd.launches[name] == before.get(name, 0) + 1
+    for name in (fa.DKV_KERNEL, fa.DQ_KERNEL):
+        assert fa.flash_attention_bwd.launches[name] == before.get(name, 0)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(((g.float() - w.float()).abs() <= fa.grad_tolerance(w)).all())
+    # no atomics: the same result on every run
+    again = torch.autograd.grad(fa.flash_attention(*qkv), qkv, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_refuses_head_dim_128():
+    # the kernels take d = 64 and 512; on the card another head dim raises,
+    # naming no queue item (on the CPU the plain backward takes every head dim)
+    _card()
+    q, k, v, do = _inputs((1, 1024, 1, 128), 1024, torch.bfloat16, seed=3)
+    o, lse = fa.flash_attention_reference(q, k, v, with_lse=True)
+    with pytest.raises(NotImplementedError, match="head dim 128") as raised:
         fa.flash_attention_bwd(q, k, v, o, lse, do)
     assert "item" not in str(raised.value)

@@ -59,7 +59,8 @@ def test_port_imports_no_jax():
                     "preproc.skeleton_extraction", "preproc.pose_worker",
                     "preproc.legacy_detectors", "cli.extract_skeleton",
                     "cli.extract_training_skeletons", "ops.gate", "ops.quant",
-                    "parallel.mesh", "parallel.sequence", "core.trace"):
+                    "parallel.mesh", "parallel.sequence", "core.trace",
+                    "tools.export_model", "tools.evaluate"):
             assert "stableanimator_tpu_torch." + mod in names, mod
         assert not bad, bad
     """)
@@ -83,6 +84,10 @@ def test_chip_smoke_profile_categories_keep_the_kernels_apart():
                  "flash_attention_bwd_dkv",
              "void (anonymous namespace)::flash_bwd_dq_sm90_kernel<__nv_bfloat16>(...)":
                  "flash_attention_bwd_dq",
+             "void bwd512::flash_bwd_dkv_d512_kernel<__nv_bfloat16>(bwd512::Params)":
+                 "flash_attention_bwd_dkv_d512",
+             "void bwd512::flash_bwd_dq_d512_kernel<__half>(bwd512::Params)":
+                 "flash_attention_bwd_dq_d512",
              "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
              "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise"}
     assert {name: chip_smoke.category(name) for name in names} == names
@@ -159,6 +164,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         animation.build_models(**micro_model_kwargs(), quant=True)
     quantized = animation.build_models(**micro_model_kwargs(), device="cpu", quant=True)
     assert next(quantized.unet.parameters()).device.type == "cpu"
+    from stableanimator_tpu_torch.tools import evaluate, export_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_model.main(["--what", "vae_encode", "--output", "none.pt2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate.csim([], np.zeros((8, 8, 3), np.uint8), "none")
+    frames = [np.zeros((8, 8, 3), np.uint8)] * 16
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate.fvd(frames, frames, "none.onnx")
 
 
 def _paths(tree, prefix=()):
