@@ -15,15 +15,13 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            (csrc/raster.cpp) with g++, one process per source, in parallel
            (a failed build fails the run); prints the ptxas report and, from cuobjdump -sass,
            the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
-           d = 64 and d = 512 forwards, the resident forward and both
-           backward kernels: fails on a spill in any of the three libraries,
-           if one of those five kernels uses other than its launch-bound
-           register count (setmaxnreg needs it), if HGMMA or UTMALDG is
-           missing from one of their instantiations, or if the forward's
-           library still holds the mma.sync kernel (flash_fwd_kernel); lists
-           the d = 512 backward pair as what it is (mma.sync: registers and
-           its SASS's HMMA, HGMMA and TMA counts) and fails if its HMMA is
-           missing
+           d = 64 and d = 512 forwards, the resident forward and the d = 64
+           and d = 512 backward pairs: fails on a spill in any of the three
+           libraries, if one of those seven kernels uses other than its
+           launch-bound register count (setmaxnreg needs it), if HGMMA or
+           UTMALDG is missing from one of their instantiations, or if a
+           library still holds a retired mma.sync kernel (the forward's
+           flash_fwd_kernel, the backward's flash_bwd_{dkv,dq}_d512_kernel)
   kernels  the streamed forward kernels against their plain PyTorch version,
            with and without lse, at the main paths' full shapes in bf16 and
            at ragged and fp16 shapes, with the d = 64 and d = 512 kernels'
@@ -48,7 +46,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            probe's rate; the
            backward's beside their earlier design's times and the bound of
            the products they issue (P and dS split in two), the d = 512
-           pair's at crops 24 and 32
+           pair's at crops 24 and 32; the d = 512 pair's edges too (kv off
+           its 64-row block with q off its 16-row tile, and the reverse)
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   face     the ONNX -> torch executor on the card: an iresnet100 stand-in
@@ -149,8 +148,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
 The phases run in the order face, dwpose, generate (with its profile, the
 A/B, faceopt, export, parallel and quant), serve, longvideo (with the driving
 request), train.
-Before the last line it prints one JSON object with the kernels' numbers;
-the last line is {"ok": true, "device": {...}}.
+Each phase logs its seconds ("[chip_smoke] <phase>: N s"). Before the last
+line it prints one JSON object with the kernels' numbers; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -265,28 +265,26 @@ EXTRA_CHECKS = (("vae_mid", (2, 4096, 1, 512), 4096, torch.float16, False),
 # on an H100 80GB HBM3 at 700 W; printed beside this run's
 EARLIER_FWD_MS = {"unet_level0": 6.827, "unet_level1": 0.876, "vae_mid": 4.413,
                   "train_level0": 3.449, "train_level1": 0.467}
-# the mma.sync d = 512 backward pair (no wgmma, TMA or warp specialisation):
-# the build phase prints its registers and its SASS's mma.sync (HMMA) and
-# wgmma / TMA counts, and fails on a spill (as for every kernel) or if HMMA
-# is missing
-MMA_SYNC_SYMBOLS = {BWD_SOURCE: ("flash_bwd_dkv_d512_kernel", "flash_bwd_dq_d512_kernel")}
 # the Hopper kernels' symbols by library, and the SASS instructions that
 # show their design: wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG;
 # the backward stores from registers)
 SM90_SYMBOLS = {FWD_KERNEL: ("flash_fwd_sm90_kernel", "flash_fwd_d512_sm90_kernel"),
                 RES_KERNEL: ("flash_resident_sm90_kernel",),
-                BWD_SOURCE: ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")}
+                BWD_SOURCE: ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                             "flash_bwd_dkv_d512_sm90_kernel", "flash_bwd_dq_d512_sm90_kernel")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 # their registers per thread at launch, 65536 over their threads rounded
 # down to 8 (512 threads for the d = 64 forwards, 384 for the d = 512 forward
-# and the backward): the consumers' setmaxnreg.inc (to 160, and to 240)
-# waits for good on fewer
+# and both backward pairs): the consumers' setmaxnreg.inc (to 160, and to
+# 240) waits for good on fewer
 SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_resident_sm90_kernel": 128,
                   "flash_fwd_d512_sm90_kernel": 168,
-                  "flash_bwd_dkv_sm90_kernel": 168, "flash_bwd_dq_sm90_kernel": 168}
-# the mma.sync forward that the d = 512 Hopper kernel replaced: the forward's
-# library must no longer hold it
-RETIRED_SYMBOL = "flash_fwd_kernel"
+                  "flash_bwd_dkv_sm90_kernel": 168, "flash_bwd_dq_sm90_kernel": 168,
+                  "flash_bwd_dkv_d512_sm90_kernel": 168, "flash_bwd_dq_d512_sm90_kernel": 168}
+# the mma.sync kernels that Hopper kernels replaced, by library: the
+# forward's and the d = 512 backward pair's; no library may hold them
+RETIRED_SYMBOLS = {FWD_KERNEL: ("flash_fwd_kernel",),
+                   BWD_SOURCE: ("flash_bwd_dkv_d512_kernel", "flash_bwd_dq_d512_kernel")}
 # the L2 read rate: one sum that reads an fp32 tensor of L2_PROBE_BYTES,
 # which the 50 MB L2 holds, L2_PROBE_REPEATS times over (a stride-0 view)
 L2_PROBE_BYTES, L2_PROBE_REPEATS = 16 * 2**20, 32
@@ -298,7 +296,9 @@ EXP_PER_CLOCK_PER_SM = 16
 # 128-row kv block (dK/dV) and off the 64-row kv tile (dQ), q, k, v as
 # strided views of one [B, S, 3, H, D] tensor, fp16 at training level 1; the
 # d = 512 pair at the face-opt crops 23 (529 tokens: off every tile), 24 and
-# 32, fp16 at crop 32, and q 200 x kv 1024
+# 32, fp16 at crop 32, q 200 x kv 1024, and its edges: kv off the dK/dV
+# kernel's 64-row block with q off its 16-row tile (two heads), and q off the
+# dQ kernel's 64-row block with kv off its 16-row tile (fp16)
 BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
                     ("ragged_300", (1, 300, 2, 64), 300, torch.float16, False),
                     ("ragged_640_576", (2, 640, 2, 64), 576, torch.bfloat16, False),
@@ -312,17 +312,21 @@ BWD_EXTRA_CHECKS = (("ragged_300", (1, 300, 2, 64), 300, torch.bfloat16, False),
                     ("faceopt_crop24", (16, 576, 1, 512), 576, torch.bfloat16, False),
                     ("faceopt_crop32", (16, 1024, 1, 512), 1024, torch.bfloat16, False),
                     ("faceopt_crop32_fp16", (16, 1024, 1, 512), 1024, torch.float16, False),
-                    ("d512_q200_kv1024", (16, 200, 1, 512), 1024, torch.bfloat16, False))
+                    ("d512_q200_kv1024", (16, 200, 1, 512), 1024, torch.bfloat16, False),
+                    ("d512_q200_kv300_h2", (2, 200, 2, 512), 300, torch.bfloat16, False),
+                    ("d512_q72_kv1000_fp16", (4, 72, 1, 512), 1000, torch.float16, False))
 # the backward kernels' times per launch with their earlier design
-# (mma.sync, before the wgmma / TMA kernels), measured by this script on an
-# H100 80GB HBM3 at 700 W; printed beside this run's
+# (mma.sync, before the wgmma / TMA kernels, at both head dims), measured by
+# this script on an H100 80GB HBM3 at 700 W; printed beside this run's
 EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
-                  DQ_KERNEL: {"train_level0": 3.145, "train_level1": 0.434}}
+                  DQ_KERNEL: {"train_level0": 3.145, "train_level1": 0.434},
+                  DKV512_KERNEL: {"faceopt_crop24": 0.584, "faceopt_crop32": 1.575},
+                  DQ512_KERNEL: {"faceopt_crop24": 0.346, "faceopt_crop32": 0.769}}
 # products of 2 B H Sq Sk d operations each kernel issues, P and dS fed to
 # the tensor cores as hi + lo: dK/dV S^T, dP^T, 2 dV, 2 dK; dQ S, dP, 2 dQ;
-# the d = 512 pair recomputes S^T and dP^T for each of its 4 (dK/dV) and 2
-# (dQ) column slices: 4 x 2 + 4 and 2 x 2 + 2
-ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 12, DQ512_KERNEL: 6}
+# the d = 512 dK/dV kernel computes S^T and dP^T once for each of its 2
+# column slices: 2 x 2 + 4
+ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 8, DQ512_KERNEL: 4}
 ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "faceopt",
               "export", "parallel", "quant", "serve", "longvideo", "train", "profile")
 # the parallel phase: the world-of-one mesh request runs the plain request's
@@ -345,8 +349,8 @@ CATEGORIES = (("flash_attention_fwd", r"flash_fwd_\w*kernel"),
               ("flash_attention_resident", r"flash_resident_sm90_kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_sm90_kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_sm90_kernel"),
-              ("flash_attention_bwd_dkv_d512", r"flash_bwd_dkv_d512_kernel"),
-              ("flash_attention_bwd_dq_d512", r"flash_bwd_dq_d512_kernel"),
+              ("flash_attention_bwd_dkv_d512", r"flash_bwd_dkv_d512_sm90_kernel"),
+              ("flash_attention_bwd_dq_d512", r"flash_bwd_dq_d512_sm90_kernel"),
               ("conv", r"conv|cudnn|fprop|dgrad|wgrad|implicit_convolve|winograd"),
               ("gemm", r"gemm|gemv|nvjet|cutlass|xmma|sm90_|cublas|matmul"),
               ("norm/softmax/reduce", r"reduce|softmax|norm|welford"),
@@ -531,22 +535,13 @@ def phase_build():
                     + ", ".join(f"{op} {n}" for op, n in ops.items()))
             if not counts or any(ops[op] == 0 for ops in counts.values() for op in SASS_OPS[:2]):
                 raise SystemExit(f"{symbol} lacks wgmma or TMA loads in its SASS: {counts}")
-        for symbol in MMA_SYNC_SYMBOLS.get(name, ()):
-            # listed as what it is: mma.sync, no wgmma or TMA
-            regs = _registers(report, symbol)
-            counts = _sass_counts(path, symbol, ("HMMA",) + SASS_OPS)
-            for func, ops in counts.items():
-                log(f"[build] {name} {func[:160]}: mma.sync kernel (no wgmma, TMA or warp "
-                    f"specialisation), {regs.get(func, '?')} registers, 0 spills; SASS "
-                    + ", ".join(f"{op} {n}" for op, n in ops.items()))
-            if not regs or not counts or any(ops["HMMA"] == 0 for ops in counts.values()):
-                raise SystemExit(f"{symbol} missing from {name} or without mma.sync (HMMA): "
-                                 f"registers {regs}, SASS {counts}")
-    retired = _sass_counts(paths[FWD_KERNEL], RETIRED_SYMBOL)
-    log(f"[build] {FWD_KERNEL}: {len(retired)} instantiations of {RETIRED_SYMBOL} (the mma.sync "
-        "kernel) in the library")
-    if retired:
-        raise SystemExit(f"{FWD_KERNEL} still holds {RETIRED_SYMBOL}: {sorted(retired)}")
+    for name, symbols in RETIRED_SYMBOLS.items():
+        for symbol in symbols:
+            retired = _sass_counts(paths[name], symbol)
+            log(f"[build] {name}: {len(retired)} instantiations of {symbol} (a retired mma.sync "
+                "kernel) in the library")
+            if retired:
+                raise SystemExit(f"{name} still holds {symbol}: {sorted(retired)}")
 
 
 def _qkv(shape, dtype, seed, sk=None, fused=False):
@@ -2464,35 +2459,54 @@ def main() -> int:
 
 
 def _run(phases, steps: int, t_start: float, standins: str) -> int:
+    last = [t_start]
+
+    def took(name):
+        # seconds since the previous phase ended, so a run near its time limit
+        # shows which phase grew
+        now = time.perf_counter()
+        log(f"[chip_smoke] {name}: {now - last[0]:.1f} s (at {now - t_start:.1f} s)")
+        last[0] = now
+
     l2_rate = None
     if "device" in phases:
         l2_rate = phase_device()
     if "build" in phases:
         phase_build()
+        took("build")
     gen = longvideo = train = face = faceopt = served = parallel = quant = None
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
+        took("kernels")
     if "small" in phases:
         phase_small()
+        took("small")
     if {"face", "faceopt", "serve"} & set(phases):
         face = phase_face(standins)
+        took("face")
     dwpose = None
     if "dwpose" in phases:
         dwpose = phase_dwpose(standins)
         torch.cuda.empty_cache()
+        took("dwpose")
     if "generate" in phases:
         gen, state, plain_frames = phase_generate(steps)
         if "profile" in phases:
             profile_generate(*state)
         phase_ab(*state)
+        took("generate")
         if "faceopt" in phases:
             faceopt = phase_faceopt(*state, gen, plain_frames, face)
+            took("faceopt")
         if "export" in phases:
             phase_export(*state[:2])
+            took("export")
         if "parallel" in phases:
             parallel = phase_parallel(*state, gen, plain_frames)
+            took("parallel")
         if "quant" in phases:
             quant = phase_quant(*state[1:], gen, plain_frames, "profile" in phases)
+            took("quant")
         del state, plain_frames
         gc.collect()                 # the generate phase's models go before the server's come
         torch.cuda.empty_cache()
@@ -2500,6 +2514,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         served = phase_serve(standins, gen, steps)
         gc.collect()
         torch.cuda.empty_cache()
+        took("serve")
     if "longvideo" in phases:
         longvideo = phase_longvideo(steps)
         torch.cuda.empty_cache()
@@ -2509,6 +2524,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
             dwpose = write_dwpose(os.path.join(standins, "DWPose"))
         phase_driving(steps, dwpose)
         torch.cuda.empty_cache()
+        took("longvideo")
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()
         if "profile" in phases:
@@ -2517,6 +2533,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         del state, step_fn, batch
         torch.cuda.empty_cache()
         train_cli()
+        took("train")
     if "kernels" in phases:
         log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
                                                    served, parallel, quant)}))

@@ -68,9 +68,13 @@
 //
 // Head dim 512 (the VAE decoder's mid attention, which the face
 // optimisation differentiates) runs another pair, with the same arguments and
-// vectors: flash_bwd_dkv_d512_kernel and flash_bwd_dq_d512_kernel in
-// csrc/flash_bwd_d512.cuh (mma.sync, each CTA one slice of the output's
-// columns), whose note says why the design above does not widen to it.
+// vectors: flash_bwd_dkv_d512_sm90_kernel and flash_bwd_dq_d512_sm90_kernel in
+// csrc/flash_bwd_d512.cuh. They keep this design's producer and two
+// consumers, TMA ring and hi / lo register operands, but a [64, 512] fp32
+// accumulator fills a warpgroup's registers, so the two consumers split d
+// (dQ: each owns 256 output columns; dK/dV: each CTA one half of the output
+// columns, each consumer 128 of them) and exchange their fp32 partial S and
+// dP through shared memory; its note gives the budgets.
 //
 // C interface (bound with ctypes): sa_flash_attention_bwd_dkv and
 // sa_flash_attention_bwd_dq return the cudaError_t of the launch
@@ -120,60 +124,8 @@ static_assert(128 * PRODUCER_REGS + 128 * C * CONSUMER_REGS <= NTHREADS * LAUNCH
               "setmaxnreg asks for more registers than the CTA holds");
 static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory");
 
-struct Params {
-  const float* lse;    // [B, H, Sq_pad]
-  const float* delta;  // [B, H, Sq_pad]
-  void* dq;
-  void* dk;
-  void* dv;
-  int sq, sk, h;
-  // strides (batch, seq, head) of dQ, dK, dV
-  long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
-  float scale;
-};
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
-    lo = __uint_as_float(u << 16);
-    hi = __uint_as_float(u & 0xffff0000u);
-  }
-};
-
-template <>
-struct Ops<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
-    const float2 f = __half22float2(*reinterpret_cast<__half2*>(&u));
-    lo = f.x;
-    hi = f.y;
-  }
-};
-
-// x (fp32, an m64n64 accumulator fragment) as the A fragments of four k16
-// steps, hi = round(x) and lo = round(x - hi): the accumulator's layout is
-// the A operand's, pairs of neighbouring columns in one register
-template <typename T>
-__device__ __forceinline__ void split(const float (&x)[32], uint32_t (&hi)[16],
-                                      uint32_t (&lo)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    float h0, h1;
-    hi[i] = Ops<T>::pack(x[2 * i], x[2 * i + 1]);
-    Ops<T>::unpack(hi[i], h0, h1);
-    lo[i] = Ops<T>::pack(x[2 * i] - h0, x[2 * i + 1] - h1);
-  }
-}
+// the kernels' arguments, the same at both head dims
+using Params = bwd512::Params;
 
 // acc = A B^T over d = 64, A and B 64-row tiles K-major in shared memory;
 // issued, not committed
@@ -201,24 +153,6 @@ __device__ __forceinline__ void issue_rs(float (&acc)[32], const uint32_t (&hi)[
                                    hi[4 * kk + 3], desc_b + 128 * kk);
     sm90::wgmma_rs_m64n64k16_tn<T>(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
                                    lo[4 * kk + 3], desc_b + 128 * kk);
-  }
-}
-
-// rows `row` and `row` + 8 of an m64n64 fragment (columns 8n + 2t, + 1) times
-// `mul`, rounded to T, into a [S, 64] slice; rows at or past `valid` dropped
-template <typename T>
-__device__ __forceinline__ void store_rows(void* out, long long row_stride, int valid, int row,
-                                           int t, const float (&acc)[32], float mul) {
-  T* base = reinterpret_cast<T*>(out);
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (row < valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)row * row_stride + col) =
-          Ops<T>::pack(acc[4 * n] * mul, acc[4 * n + 1] * mul);
-    if (row + 8 < valid)
-      *reinterpret_cast<uint32_t*>(base + (long long)(row + 8) * row_stride + col) =
-          Ops<T>::pack(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
 }
 
@@ -347,8 +281,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     sm90::fence_operands(s);
     sm90::fence_operands(dp);
     p_ds_cols(s, dp, sLse, sDelta, p.sq, t, scale_log2e);
-    split<T>(s, p_hi, p_lo);
-    split<T>(dp, ds_hi, ds_lo);
+    sm90::split<T>(s, p_hi, p_lo);
+    sm90::split<T>(dp, ds_hi, ds_lo);
     for (int i = 1; i < n_q; ++i) {
       const int st = i % STAGES;
       const int prev = (i - 1) % STAGES;
@@ -368,8 +302,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       sm90::fence_operands(dv);
       sm90::fence_operands(dk);
       if (lane == 0) sm90::mbar_arrive(&empty[prev]);
-      split<T>(s, p_hi, p_lo);
-      split<T>(dp, ds_hi, ds_lo);
+      sm90::split<T>(s, p_hi, p_lo);
+      sm90::split<T>(dp, ds_hi, ds_lo);
     }
     const int last = (n_q - 1) % STAGES;
     sm90::wgmma_fence();
@@ -381,10 +315,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     sm90::fence_operands(dk);
 
     const int row = k0 + cw * 64 + warp * 16 + g;
-    store_rows<T>(static_cast<T*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh, p.dk_ss, p.sk, row, t, dk,
-                  p.scale);
-    store_rows<T>(static_cast<T*>(p.dv) + bb * p.dv_sb + hh * p.dv_sh, p.dv_ss, p.sk, row, t, dv,
-                  1.f);
+    sm90::store_rows<T>(static_cast<T*>(p.dk) + bb * p.dk_sb + hh * p.dk_sh, p.dk_ss, p.sk, row, t,
+                        dk, p.scale);
+    sm90::store_rows<T>(static_cast<T*>(p.dv) + bb * p.dv_sb + hh * p.dv_sh, p.dv_ss, p.sk, row, t,
+                        dv, 1.f);
   }
 }
 
@@ -473,7 +407,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     sm90::fence_operands(s);
     sm90::fence_operands(dp);
     ds_rows(s, dp, lse_lo, lse_hi, dl_lo, dl_hi, p.sk, t, scale_log2e);
-    split<T>(s, ds_hi, ds_lo);
+    sm90::split<T>(s, ds_hi, ds_lo);
     for (int j = 1; j < n_kv; ++j) {
       const int st = j % STAGES;
       const int prev = (j - 1) % STAGES;
@@ -491,7 +425,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       sm90::wgmma_wait<0>();
       sm90::fence_operands(dq);
       if (lane == 0) sm90::mbar_arrive(&empty[prev]);
-      split<T>(s, ds_hi, ds_lo);
+      sm90::split<T>(s, ds_hi, ds_lo);
     }
     const int last = (n_kv - 1) % STAGES;
     sm90::wgmma_fence();
@@ -500,13 +434,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     sm90::wgmma_wait<0>();
     sm90::fence_operands(dq);
 
-    store_rows<T>(static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh, p.dq_ss, p.sq, row, t, dq,
-                  p.scale);
+    sm90::store_rows<T>(static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh, p.dq_ss, p.sq, row, t,
+                        dq, p.scale);
   }
 }
 
 template <typename T>
-cudaError_t launch(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+cudaError_t launch_d64(bool dkv, const void* q, const void* k, const void* v, const void* dout,
                    const long long* st, const Params& p, int b, cudaStream_t stream) {
   using sm90::make_map;
   constexpr bool is_half = std::is_same<T, __half>::value;
@@ -529,10 +463,13 @@ cudaError_t launch(bool dkv, const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-int run(bool dkv, const void* q, const void* k, const void* v, const void* dout, const void* lse,
-        const void* delta, void* dq, void* dk, void* dv, int dtype, int b, int sq, int sk, int h,
-        int d, const void* strides, float scale, void* stream) {
-  if (d != D || b > 65535 || h > 65535 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
+// checks a call of head dim `want_d`'s pair and launches it
+int run(int want_d, bool dkv, const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dq, void* dk, void* dv, int dtype, int b, int sq,
+        int sk, int h, int d, const void* strides, float scale, void* stream) {
+  const int slices = d == D ? 1 : bwd512::DKV_SLICES;  // the dK/dV grid's y: heads x slices
+  if (d != want_d || b > 65535 || h > 65535 / slices || sq <= 0 || sk <= 0)
+    return (int)cudaErrorInvalidValue;
   // strides (batch, seq, head) of q, k, v, dO, dQ, dK, dV
   const long long* st = static_cast<const long long*>(strides);
   Params p;
@@ -549,40 +486,12 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   for (int i = 0; i < 9; ++i) *dst[i] = st[12 + i];
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<__nv_bfloat16>(dkv, q, k, v, dout, st, p, b, s);
-  if (dtype == 1) return (int)launch<__half>(dkv, q, k, v, dout, st, p, b, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// the d = 512 pair: the same arguments (q, k, v, dO read through their
-// strides, no tensor maps)
-int run_d512(bool dkv, const void* q, const void* k, const void* v, const void* dout,
-             const void* lse, const void* delta, void* dq, void* dk, void* dv, int dtype, int b,
-             int sq, int sk, int h, int d, const void* strides, float scale, void* stream) {
-  if (d != bwd512::D || b > 65535 || h > 65535 / bwd512::DKV_SLICES || sq <= 0 || sk <= 0)
-    return (int)cudaErrorInvalidValue;
-  bwd512::Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  p.sq = sq;
-  p.sk = sk;
-  p.h = h;
-  long long* dst[21] = {&p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,  &p.v_sb,
-                        &p.v_ss,  &p.v_sh,  &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss,
-                        &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
-  const long long* st = static_cast<const long long*>(strides);
-  for (int i = 0; i < 21; ++i) *dst[i] = st[i];
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)bwd512::launch<__nv_bfloat16>(dkv, p, b, s);
-  if (dtype == 1) return (int)bwd512::launch<__half>(dkv, p, b, s);
+  if (dtype == 0)
+    return (int)(d == D ? launch_d64<__nv_bfloat16>(dkv, q, k, v, dout, st, p, b, s)
+                        : bwd512::launch<__nv_bfloat16>(dkv, q, k, v, dout, st, p, b, s));
+  if (dtype == 1)
+    return (int)(d == D ? launch_d64<__half>(dkv, q, k, v, dout, st, p, b, s)
+                        : bwd512::launch<__half>(dkv, q, k, v, dout, st, p, b, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -593,8 +502,8 @@ extern "C" int sa_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                                           void* dq, void* dk, void* dv, int dtype, int b, int sq,
                                           int sk, int h, int d, const void* strides, float scale,
                                           void* stream) {
-  return run(true, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides, scale,
-             stream);
+  return run(D, true, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
+             scale, stream);
 }
 
 extern "C" int sa_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -602,8 +511,8 @@ extern "C" int sa_flash_attention_bwd_dq(const void* q, const void* k, const voi
                                          void* dq, void* dk, void* dv, int dtype, int b, int sq,
                                          int sk, int h, int d, const void* strides, float scale,
                                          void* stream) {
-  return run(false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides, scale,
-             stream);
+  return run(D, false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
+             scale, stream);
 }
 
 extern "C" int sa_flash_attention_bwd_dkv_d512(const void* q, const void* k, const void* v,
@@ -611,8 +520,8 @@ extern "C" int sa_flash_attention_bwd_dkv_d512(const void* q, const void* k, con
                                                const void* delta, void* dq, void* dk, void* dv,
                                                int dtype, int b, int sq, int sk, int h, int d,
                                                const void* strides, float scale, void* stream) {
-  return run_d512(true, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
-                  scale, stream);
+  return run(bwd512::D, true, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d,
+             strides, scale, stream);
 }
 
 extern "C" int sa_flash_attention_bwd_dq_d512(const void* q, const void* k, const void* v,
@@ -620,6 +529,6 @@ extern "C" int sa_flash_attention_bwd_dq_d512(const void* q, const void* k, cons
                                               const void* delta, void* dq, void* dk, void* dv,
                                               int dtype, int b, int sq, int sk, int h, int d,
                                               const void* strides, float scale, void* stream) {
-  return run_d512(false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides,
-                  scale, stream);
+  return run(bwd512::D, false, q, k, v, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d,
+             strides, scale, stream);
 }

@@ -3,8 +3,10 @@
 // and arrivals on a peer CTA's), TMA tensor loads (local, and multicast into
 // the CTAs of a cluster) and stores and 1-D bulk copies, the cluster's rank
 // and barrier, warpgroup matrix multiply (wgmma) with its shared-memory
-// descriptors, named barriers and setmaxnreg; the exponential and the
-// forwards' online softmax on a wgmma accumulator fragment; and, on the
+// descriptors, named barriers and setmaxnreg; the exponential, the
+// forwards' online softmax on a wgmma accumulator fragment and the
+// backwards' hi / lo split of one into register A fragments and its
+// store through strides; and, on the
 // host, the TMA tensor maps over [B, S, H, D] tensors in 64-column blocks.
 //
 // Operand layouts follow the PTX ISA: a tile that TMA writes with
@@ -35,8 +37,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // conversions between fp32 and the 16-bit input type T: one value each way,
-// and two fp32 values rounded and packed into one 32-bit register (lo in the
-// low half)
+// two fp32 values rounded and packed into one 32-bit register (lo in the low
+// half), and such a register back to two fp32 values
 template <typename T>
 struct Cvt;
 
@@ -48,6 +50,10 @@ struct Cvt<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
+    lo = __uint_as_float(u << 16);
+    hi = __uint_as_float(u & 0xffff0000u);
+  }
 };
 
 template <>
@@ -57,6 +63,11 @@ struct Cvt<__half> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void unpack(uint32_t u, float& lo, float& hi) {
+    const float2 f = __half22float2(*reinterpret_cast<__half2*>(&u));
+    lo = f.x;
+    hi = f.y;
   }
 };
 
@@ -338,6 +349,12 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 #define SA_SM90_REGS16                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
+#define SA_SM90_ACC8(d)                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7])
+
+#define SA_SM90_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
 // d[64] (+)= A B for a 64 x 128 tile, k = 16: A (64 x 16) and B (128 rows of
 // 16) both K-major in shared memory; scale_d = 0 overwrites d
 template <typename T>
@@ -404,6 +421,28 @@ __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc
   }
 }
 
+// d[8] (+)= A B for a 64 x 16 tile, k = 16: A (64 x 16) and B (16 rows of
+// 16) both K-major in shared memory; scale_d = 0 overwrites d
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 " SA_SM90_REGS8
+        ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : SA_SM90_ACC8(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " SA_SM90_REGS8
+        ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : SA_SM90_ACC8(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
 // d[128] += A B for a 64 x 256 tile, k = 16: A (64 x 16) from registers in
 // the m16n8k16 fragment layout of each warp's 16 rows, B (16 rows of 256)
 // MN-major in shared memory: four 64-wide swizzled groups along N, the
@@ -425,6 +464,31 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16_tn(float (&d)[128], uint32_t
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SA_SM90_REGS128
         ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
         : SA_SM90_ACC128(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+  }
+}
+
+// d[64] += A B for a 64 x 128 tile, k = 16: A (64 x 16) from registers in
+// the m16n8k16 fragment layout of each warp's 16 rows, B (16 rows of 128)
+// MN-major in shared memory: two 64-wide swizzled groups along N, the
+// descriptor's leading byte offset apart
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_m64n128k16_tn(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                       uint32_t a2, uint32_t a3,
+                                                       uint64_t desc_b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " SA_SM90_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : SA_SM90_ACC64(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SA_SM90_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : SA_SM90_ACC64(d)
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
   }
 }
@@ -525,6 +589,41 @@ __device__ __forceinline__ void pack_p(const float (&s)[N], uint32_t (&pa)[N / 2
     pa[4 * kk + 1] = Cvt<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
     pa[4 * kk + 2] = Cvt<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
     pa[4 * kk + 3] = Cvt<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// x (fp32, an m64n(N / 4 * 8) accumulator fragment) as the A fragments of
+// N / 8 k16 steps in two 16-bit parts, hi = round(x) and lo = round(x - hi),
+// so that a product keeps about 16 bits of x: the accumulator's layout is
+// the A operand's, pairs of neighbouring columns in one register
+template <typename T, int N>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N / 2],
+                                      uint32_t (&lo)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    float h0, h1;
+    hi[i] = Cvt<T>::pack(x[2 * i], x[2 * i + 1]);
+    Cvt<T>::unpack(hi[i], h0, h1);
+    lo[i] = Cvt<T>::pack(x[2 * i] - h0, x[2 * i + 1] - h1);
+  }
+}
+
+// rows `row` and `row` + 8 of an m64n(2 N) accumulator fragment (columns
+// 8n + 2t, + 1) times `mul`, rounded to T, into a [S, cols] slice whose
+// column 0 is at `base`, `row_stride` elements a row; rows at or past
+// `valid` dropped
+template <typename T, int N>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride, int valid, int row,
+                                           int t, const float (&acc)[N], float mul) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row < valid)
+      *reinterpret_cast<uint32_t*>(base + (long long)row * row_stride + col) =
+          Cvt<T>::pack(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+    if (row + 8 < valid)
+      *reinterpret_cast<uint32_t*>(base + (long long)(row + 8) * row_stride + col) =
+          Cvt<T>::pack(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
 }
 

@@ -20,12 +20,13 @@ P = exp(s - lse), dP = dO V^T, delta = sum(dO * o), dS = P * (dP - delta),
 dK = dS^T (scale q), dV = P^T dO and dQ = scale (dS K), with q * scale not
 rounded (unlike the forward). Head dims 64 (the UNet) and 512 (the VAE
 decoder's mid attention, which the face optimisation differentiates at
-latent crops of 23 and up). At d = 64 both kernels are Hopper designs (TMA
-loads into a ring of tiles, wgmma, a producer warpgroup and two consumers);
-at d = 512 a second pair (`csrc/flash_bwd_d512.cuh`: mma.sync, each CTA one
-slice of the output's columns, recomputing S and dP over all of d). Both
-pairs read lse and delta as [B, H, Sq padded to 64] (`bwd_vectors`) and
-count their launches under their own names (`bwd_kernel_names`).
+latent crops of 23 and up). Both pairs are Hopper designs (TMA loads into
+a ring of tiles, wgmma, a producer warpgroup and two consumers). At d = 512
+(`csrc/flash_bwd_d512.cuh`) the two consumers split d, exchanging their
+partial S and dP through shared memory, and a dK/dV CTA owns one half of the
+output's columns. Both pairs read lse and delta as [B, H, Sq padded to 64]
+(`bwd_vectors`) and count their launches under their own names
+(`bwd_kernel_names`).
 
 Resident forward: `csrc/flash_attention_resident.cu` replaces
 `_fwd_kernel_resident` (driven there by `_flash_fwd_resident`): the same
@@ -196,14 +197,13 @@ def _kernel():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernels() -> dict:
-    """Build (first use only) and bind the backward's four C entry points
-    (the d = 64 and d = 512 pairs), by kernel name. Each takes (q, k, v, dO,
+def bind_bwd_library(path) -> dict:
+    """The four C entry points (the d = 64 and d = 512 pairs) of a built
+    backward library at `path`, by kernel name. Each takes (q, k, v, dO,
     lse, delta, dq, dk, dv, dtype, b, sq, sk, h, d, strides[21], scale,
     stream), lse and delta as `bwd_vectors` lays them out; dkv leaves dq
     null, dq leaves dk, dv null."""
-    lib = ctypes.CDLL(str(build.build_kernel(BWD_SOURCE)))
+    lib = ctypes.CDLL(str(path))
     fns = {}
     for name, symbol in ((DKV_KERNEL, "sa_flash_attention_bwd_dkv"),
                          (DQ_KERNEL, "sa_flash_attention_bwd_dq"),
@@ -215,6 +215,12 @@ def _bwd_kernels() -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels() -> dict:
+    """Build (first use only) and bind this checkout's backward library."""
+    return bind_bwd_library(build.build_kernel(BWD_SOURCE))
 
 
 @functools.lru_cache(maxsize=None)
@@ -487,11 +493,14 @@ def bwd_vectors(lse: torch.Tensor, delta: torch.Tensor) -> tuple[torch.Tensor, t
                  for x in (lse, delta))
 
 
-def bwd_launchers(q, k, v, o, lse, do, scale: float):
+def bwd_launchers(q, k, v, o, lse, do, scale: float, kernels: dict | None = None):
     """Checks the CUDA inputs, computes delta and allocates dq, dk, dv;
     returns them and, by kernel name, a callable that launches that kernel
     into them (and counts the launch). `flash_attention_bwd` calls both;
-    a benchmark can time each alone."""
+    a benchmark can time each alone. `kernels` (default: this checkout's
+    library, `_bwd_kernels()`) binds the C entry points of another build of
+    the same source, by kernel name, as a benchmark that compares two builds
+    passes them."""
     _check_cuda_inputs(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -511,7 +520,7 @@ def bwd_launchers(q, k, v, o, lse, do, scale: float):
     strides = (ctypes.c_longlong * 21)(*(st for t in (q, k, v, do, dq, dk, dv)
                                          for st in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    fns = _bwd_kernels()
+    fns = _bwd_kernels() if kernels is None else kernels
 
     def launcher(name, outs):
         def launch():

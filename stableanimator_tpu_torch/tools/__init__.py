@@ -1,1 +1,2 @@
-"""tools of the PyTorch port: model export and quality evaluation."""
+"""tools of the PyTorch port: model export, quality evaluation, and an A/B
+of two builds of the flash-attention backward on the card."""

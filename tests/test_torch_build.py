@@ -81,3 +81,17 @@ def test_the_raster_builds_with_gxx_and_its_own_flags(csrc, monkeypatch):
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
     out = build.build_kernel("raster")
     assert out == build.library_path("raster") and out.stat().st_size > 0
+
+
+def test_bwd_ab_watchdog_makes_the_mbarrier_wait_trap():
+    # the A/B tool's watchdog build: sm90.cuh's one mbarrier wait loop gains a
+    # trap after WATCHDOG_CLOCKS clocks; a text without that loop is refused
+    from stableanimator_tpu_torch.tools import bwd_ab
+
+    text = (build.CSRC / "sm90.cuh").read_text()
+    patched = bwd_ab.watchdog_source(text)
+    assert patched.count("__trap()") == text.count("__trap()") + 1
+    assert f"{bwd_ab.WATCHDOG_CLOCKS}LL" in patched
+    assert patched.count("mbarrier.try_wait") == text.count("mbarrier.try_wait")
+    with pytest.raises(ValueError, match="wait loop"):
+        bwd_ab.watchdog_source(patched)

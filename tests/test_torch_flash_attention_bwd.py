@@ -134,23 +134,35 @@ def _split(x, dt, single_part):
 
 
 def _emulated_bwd(q, k, v, o, lse, do, tile=fa.BWD_TILE, kv_tile=fa.BWD_TILE, k_step=16,
-                  drop_q_tile=None, no_delta=False, double_scale=False, single_part=False):
+                  d_split=1, drop_q_tile=None, no_delta=False, double_scale=False,
+                  single_part=False):
     """The CUDA kernels' algorithm in plain PyTorch: dK/dV summed over q
     tiles of `tile` rows (the height of the dK/dV kernel's ring), dQ over kv
-    tiles of `kv_tile` rows (the dQ kernel's), P and dS fed to the products
-    as 16-bit hi + lo, fp32 accumulation in the wgmma kernels' order: each
-    `k_step` of a tile's reduction adds its hi product and then its lo
-    product to the fp32 accumulator (k_step=None: hi + lo summed first, one
-    product per tile). The last four keyword arguments inject faults."""
+    tiles of `kv_tile` rows (the dQ kernel's), S and dP each the sum, in a
+    fixed order, of `d_split` fp32 partials over equal parts of d (the
+    consumers that split it), P and dS fed to the products as 16-bit
+    hi + lo, fp32 accumulation in the wgmma kernels' order: each `k_step` of
+    a tile's reduction adds its hi product and then its lo product to the
+    fp32 accumulator (k_step=None: hi + lo summed first, one product per
+    tile). The last four keyword arguments inject faults."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     delta = torch.zeros_like(lse) if no_delta else fa.attention_delta(o, do)
 
+    def logits(a, b):
+        # a b^T over d, as d_split partials added in order
+        parts = zip(a.chunk(d_split, dim=-1), b.chunk(d_split, dim=-1))
+        out = None
+        for ap, bp in parts:
+            part = torch.einsum("bqhd,bkhd->bhqk", ap, bp)
+            out = part if out is None else out + part
+        return out
+
     def p_ds(qs, ks, vs, dos, lse_s, delta_s):
-        s = torch.einsum("bqhd,bkhd->bhqk", qs, ks) * scale
+        s = logits(qs, ks) * scale
         p = torch.exp(s - lse_s.permute(0, 2, 1)[..., None])
-        dp = torch.einsum("bqhd,bkhd->bhqk", dos, vs)
+        dp = logits(dos, vs)
         return p, p * (dp - delta_s.permute(0, 2, 1)[..., None])
 
     def add_product(acc, eq, x, y, axis):
@@ -218,13 +230,17 @@ def test_grad_tolerance_accepts_the_kernels_rounding_and_rejects_faults(sq, sk, 
 
 @pytest.mark.parametrize("sq,sk,dtype", [(529, 529, torch.bfloat16),
                                          (1024, 1024, torch.float16),
-                                         (200, 1024, torch.bfloat16)])
+                                         (200, 1024, torch.bfloat16),
+                                         # q and kv off the 64-row blocks and
+                                         # the 16-row streamed tiles
+                                         (300, 1000, torch.bfloat16)])
 def test_grad_tolerance_holds_the_d512_kernels_tiling(sq, sk, dtype):
-    # the d = 512 pair (csrc/flash_bwd_d512.cuh): 32-row q tiles (dK/dV) and
-    # 32-row kv tiles (dQ), S and dP reduced over all 512 columns, P and dS as
-    # hi + lo per 16 rows; at the face optimisation's shapes (crop 23: 529
-    # tokens; crop 32: 1024) and q shorter than kv, inside grad_tolerance,
-    # and its faults outside
+    # the d = 512 pair (csrc/flash_bwd_d512.cuh): 16-row q tiles (dK/dV) and
+    # 16-row kv tiles (dQ), S and dP each the sum of two fp32 partials over
+    # halves of d (the two consumers), P and dS as hi + lo per 16 rows; at the
+    # face optimisation's shapes (crop 23: 529 tokens; crop 32: 1024), q
+    # shorter than kv and both off the tiles, inside grad_tolerance, and its
+    # faults outside
     gen = torch.Generator().manual_seed(sq + sk)
     q = torch.randn((1, sq, 1, 512), generator=gen).to(dtype)
     k, v = (torch.randn((1, sk, 1, 512), generator=gen).to(dtype) for _ in range(2))
@@ -238,7 +254,8 @@ def test_grad_tolerance_holds_the_d512_kernels_tiling(sq, sk, dtype):
                 for g, r, b in zip(got, ref, bounds)]
 
     def emulated(**faults):
-        return _emulated_bwd(q, k, v, o, lse, do, tile=32, kv_tile=32, k_step=16, **faults)
+        return _emulated_bwd(q, k, v, o, lse, do, tile=16, kv_tile=16, k_step=16, d_split=2,
+                             **faults)
 
     assert max(shares(emulated())) < 1.0
     dq, dk, dv = shares(emulated(drop_q_tile=2))

@@ -108,13 +108,20 @@ def test_cuda_flash_attention_output_carries_its_gradient():
 # the d = 512 pair (the VAE decoder's mid attention under the face
 # optimisation, [16 frames, crop^2 tokens, 1, 512]): crop 23 (529 tokens, off
 # every tile), 24 and 32, fp16 at crop 32, q shorter than kv (200 x 1024),
-# two heads with kv off the 32-row tile
+# two heads with kv off the 16-row tile; the kernels' edges: kv off the dK/dV
+# kernel's 64-row block with q off its 16-row tile (two heads), q off the dQ
+# kernel's 64-row block with kv off its 16-row tile (fp16), a q length
+# shorter than one streamed tile and a kv length of one streamed tile only
 D512_SHAPES = [((16, 529, 1, 512), 529, torch.bfloat16),
                ((16, 576, 1, 512), 576, torch.bfloat16),
                ((16, 1024, 1, 512), 1024, torch.bfloat16),
                ((16, 1024, 1, 512), 1024, torch.float16),
                ((1, 200, 1, 512), 1024, torch.bfloat16),
-               ((2, 100, 2, 512), 300, torch.bfloat16)]
+               ((2, 100, 2, 512), 300, torch.bfloat16),
+               ((2, 200, 2, 512), 300, torch.bfloat16),
+               ((4, 72, 1, 512), 1000, torch.float16),
+               ((1, 8, 1, 512), 40, torch.bfloat16),
+               ((2, 40, 1, 512), 8, torch.bfloat16)]
 
 
 @pytest.mark.cuda

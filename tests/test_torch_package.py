@@ -84,9 +84,11 @@ def test_chip_smoke_profile_categories_keep_the_kernels_apart():
                  "flash_attention_bwd_dkv",
              "void (anonymous namespace)::flash_bwd_dq_sm90_kernel<__nv_bfloat16>(...)":
                  "flash_attention_bwd_dq",
-             "void bwd512::flash_bwd_dkv_d512_kernel<__nv_bfloat16>(bwd512::Params)":
+             "void bwd512::flash_bwd_dkv_d512_sm90_kernel<__nv_bfloat16>(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, bwd512::Params)":
                  "flash_attention_bwd_dkv_d512",
-             "void bwd512::flash_bwd_dq_d512_kernel<__half>(bwd512::Params)":
+             "void bwd512::flash_bwd_dq_d512_sm90_kernel<__half>(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, bwd512::Params)":
                  "flash_attention_bwd_dq_d512",
              "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
              "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise"}
