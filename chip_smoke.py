@@ -3,8 +3,9 @@
 NVIDIA GPU: the quickest proof that the port still starts and is right on
 the card.
 
-    python3 chip_smoke.py                 # every phase, 25 Euler steps
+    python3 chip_smoke.py                 # every default phase, 25 Euler steps
     python3 chip_smoke.py --phases device,build,kernels   # kernel bring-up only
+    python3 chip_smoke.py --phases device,build,longvideo450   # the 450-frame request
 
 Phases, in order (any failure exits nonzero; no phase's exception is caught):
   device   card name and power limit (nvidia-smi); TF32 stated and set off;
@@ -36,7 +37,13 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            against the plain backward within `grad_tolerance` at the
            training shapes and ragged bf16/fp16 ones, the d = 512 pair at the
            face-opt crops 23 (529 tokens), 24 and 32 (fp16 too) and q 200 x
-           kv 1024; then every kernel
+           kv 1024; the forward and backward also at the 576x1024 paths'
+           shapes (UNet levels 0, 1, 2 at 9216, 2304 and 576 tokens, batch 32
+           for the request, 16 with lse and backward for the vertical
+           training step; the VAE's mid attention at [4, 9216, 1, 512]),
+           where the plain versions run over chunks of the batch (their fp32
+           scores would not fit the card whole) and the whole output is
+           compared; then every kernel
            timed with CUDA events at the paths' shapes beside its bound, its
            plain version and the PyTorch library call (the resident one
            beside the streamed one too); the forwards'
@@ -76,6 +83,16 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            kernel's per-request times; then the resident A/B: the same
            request with SA_TPU_RESIDENT_KV_MAX_BYTES at 0 and at 4 MiB in
            turns (0, 4 MiB, 4 MiB, 0), each route's launches asserted
+  pro      the reference's 576x1024 request (E2E_PRO_r05.json: 16 frames,
+           CFG 3.0, tile 16, decode chunk 4) on the generate phase's models
+           with seeded 576x1024 inputs: a 2-step warm-up and the timed
+           request; frames (16, 576, 1024, 3) finite in [0, 1] and not
+           constant, and the forward kernel's launches by shape asserted:
+           5 x steps at each of UNet levels 0, 1 and 2 (15 a step: level 2's
+           576 tokens pass the 512-key cut) and 4 at [4, 9216, 1, 512], the
+           sequential decode's 4 calls of 4 frames (the fp32 VAE encode of
+           the reference stays plain); seconds, frames/s, phases and peak
+           memory printed
   faceopt  a micro face-opt generate, card vs CPU; then the generate
            request with the HJB face optimiser (steps 1, lr 0.1, from step
            8, crop 16; the iresnet100 stand-in as recogniser, its embedding
@@ -105,8 +122,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            exit, the files written, 5 progress lines, the resident and
            streamed launches (10 x 5 x steps and 4) and the 4 calls the
            resident kernel refuses (the VAE's d = 512) are asserted; then
-           the same request at budget 0 (10 x 5 x steps + 4 streamed
-           launches, none resident or refused), and the two times' ratio;
+           the same request at budget 0 and 10 steps (10 x 5 x 10 + 4
+           streamed launches, none resident or refused), and the two
+           routes' ratio of denoise seconds per step;
            then the driving request: the CLI at 512x512 x 16 frames with
            --driving_video_folder on 16 seeded raw frames and the
            full-width DWPose stand-ins (the PoseWorker subprocess on the
@@ -117,11 +135,20 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            processes printed; then cli.extract_skeleton on the same frames
            and cli.extract_training_skeletons twice (the second writes
            nothing)
+  longvideo450 (only when named) E2E_LONGVID_r05_450f.json's request: the
+           CLI on 450 seeded 512x512 pose PNGs, 25 steps, resident budget 0:
+           38 tiles in 19 groups of 2 (UNet batch 64), 1-step segments, 29
+           decode groups; 25 progress lines, 19 x 10 x steps + 29 streamed
+           launches (by shape too), 450 PNGs, a GIF and an mp4, frames not
+           constant; seconds and peak memory printed
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
            one warm-up step and three timed steps through make_train_step;
            loss / grad_norm finite, the fp32 masters moved, and the launches
-           of every kernel per step asserted; then the training CLI at the
+           of every kernel per step asserted; then the same on the vertical
+           bucket (1x16 frames of height 1024 x width 576) on the same state,
+           as MixedResolutionSampler alternates buckets: 30 forward, 15 + 15
+           backward launches a step, peak memory printed; then the training CLI at the
            micro scale for 2 steps on a PNG dataset, and a resume
   profile  one more request and one more training step under
            torch.profiler: device time by kernel category, the busiest
@@ -142,12 +169,14 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            card against the fp32 product (tests/test_ops.py's bounds) and
            its int8 weights against the CPU's; a micro quant generate card vs
            CPU; the full-width request built with quant=True from the same
-           seed, warm-up and timed, 251 launches, frames finite in [0, 1],
-           their difference from the bf16 request's printed; with profile,
-           one quant request under the profiler
+           seed, a 5-step warm-up and the timed request (251 launches at 25
+           steps), frames finite in [0, 1], their difference from the bf16
+           request's printed; with profile, one 5-step quant request under
+           the profiler
 The phases run in the order face, dwpose, generate (with its profile, the
-A/B, faceopt, export, parallel and quant), serve, longvideo (with the driving
-request), train.
+A/B, pro, faceopt, export, parallel and quant, which need the generate
+phase's models), serve, longvideo (with the driving request), longvideo450,
+train.
 Each phase logs its seconds ("[chip_smoke] <phase>: N s"). Before the last
 line it prints one JSON object with the kernels' numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -200,16 +229,36 @@ RESIDENT_BUDGET = 4 * 1024 * 1024
 # the forward kernel's shapes on the main paths, [B, S, H, D]: generate's
 # UNet levels 0 and 1 (CFG x 16 frames) and VAE decoder mid block, and the
 # training step's UNet levels 0 and 1 (16 frames), which ask for the lse
+# ... and at the reference's 576x1024 sizes (latent 72x128 for the pro
+# request, 128x72 for the vertical training bucket): UNet levels 0, 1 and 2
+# hold 9216, 2304 and 576 tokens (level 2 passes the 512-key cut there), and
+# the pro request's sequential decode runs the VAE's mid attention on 4
+# frames at a time
 PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("unet_level1", (32, 1024, 10, 64), False),
                ("vae_mid", (16, 4096, 1, 512), False),
                ("train_level0", (16, 4096, 5, 64), True),
                ("train_level1", (16, 1024, 10, 64), True),
-               ("faceopt_crop32", (16, 1024, 1, 512), True))
-# the backward kernels' shapes on the training path (d = 64) and on the face
-# optimisation's refines (d = 512: the VAE decoder's mid attention over a
-# 16-frame crop of 24 and of 32 latents; the face-opt request runs crop 32)
-TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)))
+               ("faceopt_crop32", (16, 1024, 1, 512), True),
+               ("pro_level0", (32, 9216, 5, 64), False),
+               ("pro_level1", (32, 2304, 10, 64), False),
+               ("pro_level2", (32, 576, 20, 64), False),
+               ("pro_vae_mid", (4, 9216, 1, 512), False),
+               ("vtrain_level0", (16, 9216, 5, 64), True),
+               ("vtrain_level1", (16, 2304, 10, 64), True),
+               ("vtrain_level2", (16, 576, 20, 64), True))
+# the backward kernels' shapes on the training path (d = 64; at 512x512 and
+# on the vertical bucket) and on the face optimisation's refines (d = 512:
+# the VAE decoder's mid attention over a 16-frame crop of 24 and of 32
+# latents; the face-opt request runs crop 32)
+TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)),
+                ("vtrain_level0", (16, 9216, 5, 64)), ("vtrain_level1", (16, 2304, 10, 64)),
+                ("vtrain_level2", (16, 576, 20, 64)))
+# the plain versions hold fp32 [B, H, Sq, Sk] scores (the backward two such
+# tensors at once): 54 GB at the pro request's level 0, so past
+# PLAIN_SCORE_BYTES of scores they run over chunks of the batch, whose rows
+# are independent, and the whole output is compared; smaller shapes run whole
+PLAIN_SCORE_BYTES = 12 * 2**30
 FACEOPT_BWD_SHAPES = (("faceopt_crop24", (16, 576, 1, 512)),
                       ("faceopt_crop32", (16, 1024, 1, 512)))
 # the resident kernel's checks (each with and without lse): (label, q shape,
@@ -327,8 +376,10 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # the d = 512 dK/dV kernel computes S^T and dP^T once for each of its 2
 # column slices: 2 x 2 + 4
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 8, DQ512_KERNEL: 4}
-ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "faceopt",
-              "export", "parallel", "quant", "serve", "longvideo", "train", "profile")
+ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "pro",
+              "faceopt", "export", "parallel", "quant", "serve", "longvideo", "train", "profile")
+# phases run only when --phases names them (each takes minutes of its own)
+EXTRA_PHASES = ("longvideo450",)
 # the parallel phase: the world-of-one mesh request runs the plain request's
 # kernels in the same order on the same inputs, so its frames must equal the
 # generate phase's exactly; the mesh training step's loss and grad_norm must
@@ -381,10 +432,34 @@ SMALL_TRAIN_RTOL, SMALL_TRAIN_LR = 1e-4, 1e-4
 TRAIN_LAUNCHES = {FWD_KERNEL: 20, RES_KERNEL: 0, DKV_KERNEL: 10, DQ_KERNEL: 10,
                   DKV512_KERNEL: 0, DQ512_KERNEL: 0}
 TRAIN_TIMED_STEPS = 3
-# the long-video request: 64 frames at tile 16 / overlap 4 are 5 tiles,
-# denoised in groups of 1 (UNet batch 2 x 16, as the flat request's) and
-# 5-step segments; decoded in 4 groups of 16 frames
-LONGVIDEO_FRAMES, LONGVIDEO_TILES, LONGVIDEO_DECODE_GROUPS = 64, 5, 4
+# the vertical bucket (cli/train.py's AnimationDataset(..., 576, 1024):
+# width 576, height 1024; latent 128x72), stepped on the 512x512 steps'
+# state: UNet level 2 (576 tokens) joins the kernel, so 15 attentions run
+# forward twice and backward once
+VERTICAL_HW = (1024, 576)
+VTRAIN_LAUNCHES = {FWD_KERNEL: 30, RES_KERNEL: 0, DKV_KERNEL: 15, DQ_KERNEL: 15,
+                   DKV512_KERNEL: 0, DQ512_KERNEL: 0}
+# the pro request (E2E_PRO_r05.json: 576x1024, 16 frames, 25 steps, CFG 3.0,
+# tile 16, decode chunk 4): the flat path, 15 kernel attentions per UNet
+# call (5 at each of levels 0, 1 and 2), and a latent volume of 16 x 72 x 128
+# past batched_decode_max_latent_volume, so the decode runs 4 calls of 4
+# frames, one d = 512 launch each; its warm-up runs PRO_WARMUP_STEPS
+PRO_HW, PRO_UNET_ATTENTIONS, PRO_DECODE_CALLS, PRO_WARMUP_STEPS = (576, 1024), 15, 4, 2
+# the long-video requests through the CLI, by frame count: (tiles at tile
+# 16 / overlap 4, UNet calls per Euler step, steps per segment, decode
+# groups). 64 frames: 5 tiles denoised in groups of 1 (UNet batch 2 x 16, as
+# the flat request's), 5-step segments, 4 decode groups of 16 frames. 450
+# frames (E2E_LONGVID_r05_450f.json, the longvideo450 phase): 38 tiles in
+# groups of 2 (UNet batch 2 x 2 x 16), 1-step segments (30 tile slots a
+# segment over 38 a step), 28 decode groups of 16 frames and one of 2
+LONG_PLANS = {64: (5, 5, 5, 4), 450: (38, 19, 1, 29)}
+LONGVIDEO_FRAMES, LONG450_FRAMES = 64, 450
+# the 64-frame request at budget 0 runs LONGVIDEO_STREAMED_STEPS Euler steps
+# (the one at 4 MiB runs --steps): the routes are compared per denoise step
+LONGVIDEO_STREAMED_STEPS = 10
+# the quant phase's warm-up request and its profiled request run
+# QUANT_SHORT_STEPS Euler steps; its timed request runs --steps
+QUANT_SHORT_STEPS = 5
 # the face phase: the ONNX executor on an iresnet100 stand-in (glintr100's
 # architecture) at batch 16 against the torch module. In fp64 on both sides
 # the output and the input gradient must agree within 1e-9 of their largest
@@ -441,6 +516,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _plain_rows(q, k) -> int:
+    """Batch rows per call of a plain version on q [B, Sq, H, D] and k
+    [B, Sk, H, D]: B when its fp32 scores fit PLAIN_SCORE_BYTES."""
+    b, sq, h, _ = q.shape
+    return max(1, min(b, PLAIN_SCORE_BYTES // (4 * h * sq * k.shape[1])))
+
+
+def _plain(fn, q, k, *rest, **kw):
+    """A plain version `fn` (q, k, then more batch-first tensors) over the
+    whole batch, in chunks of `_plain_rows` rows; outputs concatenated."""
+    rows = _plain_rows(q, k)
+    if rows == q.shape[0]:
+        return fn(q, k, *rest, **kw)
+    parts = [fn(*(t[i:i + rows] for t in (q, k) + rest), **kw)
+             for i in range(0, q.shape[0], rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def _chunks_note(q, k) -> str:
+    rows = _plain_rows(q, k)
+    return "" if rows == q.shape[0] else f", plain version in batch chunks of {rows}"
 
 
 def phase_device():
@@ -573,7 +673,7 @@ def _check(lbl, q, k, v) -> float:
     returns the largest absolute error of the output."""
     from stableanimator_tpu_torch.ops import flash_attention as fa
 
-    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, with_lse=True)
+    ref_o, ref_lse = _plain(fa.flash_attention_reference, q, k, v, with_lse=True)
     bound = fa.kernel_tolerance(ref_o)
     o = fa.flash_attention(q, k, v)
     o2, lse = fa.flash_attention(q, k, v, with_lse=True)
@@ -586,8 +686,9 @@ def _check(lbl, q, k, v) -> float:
     err_lse = (lse - ref_lse).abs().max().item()
     ok = share <= 1.0 and err_lse <= LSE_ATOL
     log(f"[kernels] fwd {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}"
-        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}: max|o-ref| {err:.3e}, "
-        f"{share:.3f} of the bound (eps|ref| + 2 eps rms(ref), rms "
+        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}"
+        f"{_chunks_note(q, k)}: max|o-ref| {err:.3e}, {share:.3f} of the bound (eps|ref| + 2 eps "
+        f"rms(ref), rms "
         f"{ref_o.float().square().mean().sqrt().item():.3e}); max|lse-ref| {err_lse:.3e} tol "
         f"{LSE_ATOL} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -638,7 +739,7 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
         raise SystemExit("flash_attention's output on the card carries no grad_fn")
     got = torch.autograd.grad(out, qkv, do)
     o, lse = fa.flash_attention(q, k, v, with_lse=True)
-    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    want = _plain(fa.flash_attention_bwd_reference, q, k, v, o, lse, do)
     torch.cuda.synchronize()
     errs, shares = [], []
     for g, w in zip(got, want):
@@ -647,9 +748,10 @@ def _check_bwd(lbl, q, k, v, do) -> dict:
         shares.append((diff / fa.grad_tolerance(w)).max().item())
     ok = max(shares) <= 1.0
     log(f"[kernels] bwd {lbl} q {tuple(q.shape)} kv {k.shape[1]} {str(q.dtype)[6:]}"
-        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}: "
-        "max|g-ref| dq/dk/dv " + " ".join(f"{e:.3e}" for e in errs) + ", share of "
-        "grad_tolerance (eps|ref| + eps/4 rms(ref)) " + " ".join(f"{s:.3f}" for s in shares)
+        f"{' (strided views of one QKV tensor)' if not q.is_contiguous() else ''}"
+        f"{_chunks_note(q, k)}: max|g-ref| dq/dk/dv " + " ".join(f"{e:.3e}" for e in errs)
+        + ", share of grad_tolerance (eps|ref| + eps/4 rms(ref)) "
+        + " ".join(f"{s:.3f}" for s in shares)
         + f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"the backward kernels disagree with the plain backward at {lbl}")
@@ -670,7 +772,7 @@ def _time_bwd(lbl, shape) -> dict:
     q, k, v, do = _qkv(shape, torch.bfloat16, seed=11) + _qkv(shape, torch.bfloat16, seed=12)[:1]
     o, lse = fa.flash_attention(q, k, v, with_lse=True)
     _, launch = fa.bwd_launchers(q, k, v, o, lse, do, 1.0 / math.sqrt(d))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do),
+    plain_ms = cuda_ms(lambda: _plain(fa.flash_attention_bwd_reference, q, k, v, o, lse, do),
                        iters=2, warmup=1)
     # SDPA's backward: its forward + backward less its forward
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -697,7 +799,8 @@ def _time_bwd(lbl, shape) -> dict:
             f"{'none' if earlier is None else f'{earlier:.3f} ms'}), bound "
             f"{bound_ms:.4f} ms ({bound_by}), issued-product bound {issued_ms:.4f} ms "
             f"({ISSUED_PRODUCTS[name]} products, {issued_ms / ms:.1%} of it); plain "
-            f"backward {plain_ms:.2f} ms, sdpa backward {sdpa_fb - sdpa_fwd:.3f} ms "
+            f"backward {plain_ms:.2f} ms{_chunks_note(q, k)}, sdpa backward "
+            f"{sdpa_fb - sdpa_fwd:.3f} ms "
             f"(fwd+bwd {sdpa_fb:.3f} - fwd {sdpa_fwd:.3f})")
     return rows
 
@@ -736,7 +839,7 @@ def phase_kernels(l2_rate: float):
         q, k, v = _qkv(shape, torch.bfloat16, seed=7)
         max_err[FWD_KERNEL] = max(max_err[FWD_KERNEL], _check(lbl, q, k, v))
         ms = cuda_ms(lambda: flash_attention(q, k, v, with_lse=with_lse), iters=20)
-        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, with_lse=with_lse),
+        plain_ms = cuda_ms(lambda: _plain(flash_attention_reference, q, k, v, with_lse=with_lse),
                            iters=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
@@ -763,8 +866,8 @@ def phase_kernels(l2_rate: float):
         log(f"[kernels] {FWD_KERNEL} {lbl} {tuple(shape)} bf16 lse={with_lse}: kernel {ms:.3f} "
             f"ms ({row['tflops']:.0f} TFLOP/s; earlier design "
             f"{'none' if earlier is None else f'{earlier:.3f} ms'}), bound "
-            f"{bound_ms:.3f} ms ({bound_by}){second}, plain {plain_ms:.2f} ms, sdpa "
-            f"{lib_ms:.3f} ms")
+            f"{bound_ms:.3f} ms ({bound_by}){second}, plain {plain_ms:.2f} ms"
+            f"{_chunks_note(q, k)}, sdpa {lib_ms:.3f} ms")
         rows[FWD_KERNEL].append((lbl, row))
         if lbl in RESIDENT_TIMED:
             res_ms = cuda_ms(lambda: flash_attention_resident(q, k, v), iters=20)
@@ -806,18 +909,20 @@ def _inputs(h, w, f, id_dim, device, seed=0):
     return ref, pose, face, aug
 
 
-def _train_batch(b, f, hw, id_dim, device, seed=0):
-    """A seeded synthetic training batch (the layout `train_loss` takes);
-    the face mask is a box in the upper middle of every frame."""
+def _train_batch(b, f, h, w, id_dim, device, seed=0):
+    """A seeded synthetic training batch of b clips of f frames at height h
+    and width w (the layout `train_loss` takes); the face mask is a box in
+    the upper middle of every frame, rows h/8 to h/2 and columns 3w/8 to
+    5w/8."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def uniform(lo, hi, *shape):
         return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
 
-    mask = torch.zeros((b, f, hw, hw, 1), device=device)
-    mask[:, :, hw // 8:hw // 2, 3 * hw // 8:5 * hw // 8] = 1.0
-    return {"frames": uniform(-1, 1, b, f, hw, hw, 3), "ref_image": uniform(0, 1, b, hw, hw, 3),
-            "pose_pixels": uniform(-1, 1, b, f, hw, hw, 3),
+    mask = torch.zeros((b, f, h, w, 1), device=device)
+    mask[:, :, h // 8:h // 2, 3 * w // 8:5 * w // 8] = 1.0
+    return {"frames": uniform(-1, 1, b, f, h, w, 3), "ref_image": uniform(0, 1, b, h, w, 3),
+            "pose_pixels": uniform(-1, 1, b, f, h, w, 3),
             "face_embed": torch.randn((b, id_dim), generator=gen, device=device),
             "face_mask": mask}
 
@@ -844,7 +949,8 @@ def _small_train():
         state = create_train_state(models, cfg)
         before = [m.clone() for m in state.masters]
         step_fn = make_train_step(models, cfg, PipelineConfig(), conditioning_dropout_prob=0.0)
-        batch = _train_batch(1, 2, 128, models.face_encoder.config.id_embeddings_dim, "cpu", seed=1)
+        batch = _train_batch(1, 2, 128, 128, models.face_encoder.config.id_embeddings_dim, "cpu",
+                             seed=1)
         gen = torch.Generator().manual_seed(2)
         metrics = []
         for _ in range(2):
@@ -1010,6 +1116,69 @@ def phase_ab(models, cfg, ref, pose, face):
         f"{mean[RESIDENT_BUDGET] / mean[0]:.4f}")
 
 
+def phase_pro(models, steps: int) -> dict:
+    """The reference's 576x1024 request (E2E_PRO_r05.json) on the generate
+    phase's models with seeded 576x1024 inputs: a PRO_WARMUP_STEPS-step
+    warm-up, then the timed request at `steps`. Asserted: frames
+    (16, 576, 1024, 3) finite in [0, 1] and not constant; the forward
+    kernel's launches by shape: 5 x steps at each of UNet levels 0, 1 and 2
+    (batch 32) and one per 4-frame decode call at [4, 9216, 1, 512] (the
+    sequential decode branch), nothing else (the fp32 VAE encode of the
+    reference stays plain)."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig
+    from stableanimator_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import generate
+
+    h, w = PRO_HW
+    ref, pose, face, _ = _inputs(h, w, 16, models.face_encoder.config.id_embeddings_dim, "cuda",
+                                 seed=1)
+    results = {}
+    for run, n_steps in (("warm-up", PRO_WARMUP_STEPS), ("timed", steps)):
+        cfg = PipelineConfig(height=h, width=w, num_inference_steps=n_steps)
+        tokens = [(h // 8 >> lvl) * (w // 8 >> lvl) for lvl in range(3)]
+        unet = PRO_UNET_ATTENTIONS // len(tokens) * n_steps
+        rows = 2 * cfg.num_frames                      # CFG x the one tile's frames
+        want = {(rows, s, s, heads, 64): unet for s, heads in zip(tokens, (5, 10, 20))}
+        n_tok = tokens[0]
+        want[(cfg.decode_chunk_size, n_tok, n_tok, 1, 512)] = PRO_DECODE_CALLS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        by_shape = dict(flash_attention.launches_by_shape)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        f32 = frames.float()
+        finite = bool(torch.isfinite(f32).all())
+        lo, hi, std = f32.min().item(), f32.max().item(), f32.std().item()
+        motion = f32.std(dim=0).mean().item()
+        log(f"[pro] {run} {w}x{h} (width x height) x {cfg.num_frames} frames x {n_steps} steps: "
+            f"{total:.2f} s, {cfg.num_frames / total:.3f} frames/s; phases "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
+            + f"; peak {peak_gb:.1f} GiB; flash launches {flash_attention.launches} (expected "
+            f"{sum(want.values())}), by (B, Sq, Sk, H, D) "
+            + ", ".join(f"{key}: {n}" for key, n in by_shape.items())
+            + f"; out {tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}] std "
+            f"{std:.4f}, frame-to-frame std {motion:.4f}")
+        checks = {
+            f"frames (16, {h}, {w}, 3)": tuple(frames.shape) == (cfg.num_frames, h, w, 3),
+            "finite in [0, 1]": finite and lo >= 0.0 and hi <= 1.0,
+            "not constant": std > 1e-3 and motion > 0.0,
+            "launches by shape (the sequential decode's 4 at d = 512)": by_shape == want,
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"the {h}x{w} request ({run}) failed its checks: {failed}")
+        results[run] = dict(seconds=total, phases=timings, launches=flash_attention.launches,
+                            by_shape=by_shape, peak_gib=peak_gb, steps=n_steps)
+    del frames, f32
+    torch.cuda.empty_cache()
+    return results
+
+
 class _Tee(io.StringIO):
     """Keeps what is written and passes it on to the real stdout."""
 
@@ -1041,21 +1210,23 @@ def _write_longvideo_inputs(root: str, n_frames: int, hw: int):
     return os.path.join(root, "reference.png"), poses
 
 
-def _longvideo_request(steps: int, budget: int):
-    """`cli.animate.main` at full width on a 64-frame 512x512 request with the
-    resident budget at `budget` bytes; counts and outputs asserted: at 4 MiB
-    every UNet attention takes the resident kernel and the VAE's d = 512
-    ones are refused to the streamed kernel, at 0 all take the streamed
-    kernel."""
+def _longvideo_request(steps: int, budget: int, n_frames: int = LONGVIDEO_FRAMES):
+    """`cli.animate.main` at full width on an `n_frames`-frame 512x512 request
+    (LONG_PLANS) with the resident budget at `budget` bytes; counts and
+    outputs asserted: at 4 MiB every UNet attention takes the resident
+    kernel and the VAE's d = 512 ones are refused to the streamed kernel, at
+    0 all take the streamed kernel."""
     import numpy as np
     from PIL import Image
 
     from stableanimator_tpu_torch.cli import animate
+    from stableanimator_tpu_torch.diffusion.tiling import tile_indices
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
 
     hw = 512
+    n_tiles, calls, per_segment, decode_groups = LONG_PLANS[n_frames]
     with tempfile.TemporaryDirectory() as tmp:
-        ref, poses = _write_longvideo_inputs(tmp, LONGVIDEO_FRAMES, hw)
+        ref, poses = _write_longvideo_inputs(tmp, n_frames, hw)
         out = os.path.join(tmp, "out")
         argv = ["--checkpoint_dir", os.path.join(tmp, "nockpt"), "--reference_image", ref,
                 "--pose_control_folder", poses, "--output_dir", out, "--height", str(hw),
@@ -1080,49 +1251,68 @@ def _longvideo_request(steps: int, budget: int):
             gif_frames = gif.n_frames
         mp4_bytes = os.path.getsize(os.path.join(out, "animation_video.mp4"))
     sec = info["seconds"]
-    unet = 10 * LONGVIDEO_TILES * steps          # UNet attentions at levels 0 and 1
-    want = ({RES_KERNEL: unet, FWD_KERNEL: LONGVIDEO_DECODE_GROUPS,
-             "refused": LONGVIDEO_DECODE_GROUPS} if budget
-            else {RES_KERNEL: 0, FWD_KERNEL: unet + LONGVIDEO_DECODE_GROUPS, "refused": 0})
+    unet = 10 * calls * steps                    # UNet attentions at levels 0 and 1
+    route = RES_KERNEL if budget else FWD_KERNEL
+    rows = 2 * (n_tiles // calls) * 16           # CFG x a group's tiles x 16 frames
+    want_unet = {(route, (rows, s, s, heads, 64)): unet // 2
+                 for s, heads in (((hw // 8) ** 2, 5), ((hw // 16) ** 2, 10))}
+    want = ({RES_KERNEL: unet, FWD_KERNEL: decode_groups, "refused": decode_groups} if budget
+            else {RES_KERNEL: 0, FWD_KERNEL: unet + decode_groups, "refused": 0})
     got = {k: counts["by_kernel"][k] for k in KERNELS}
-    log(f"[longvideo] cli {LONGVIDEO_FRAMES} frames {hw}x{hw}, {steps} steps, resident budget "
-        f"{budget} B: request {sec:.2f} s, {LONGVIDEO_FRAMES / sec:.3f} frames/s; phases "
+    motion = frames.astype(np.float32).std(axis=0).mean()
+    log(f"[longvideo] cli {n_frames} frames {hw}x{hw}, {steps} steps, resident budget "
+        f"{budget} B: request {sec:.2f} s, {n_frames / sec:.3f} frames/s; phases "
         + ", ".join(f"{k} {v:.2f} s" for k, v in info["phases"].items())
         + f"; main() {wall:.1f} s in all (model build, pose PNGs, outputs); peak "
-        f"{peak_gb:.1f} GiB; warm {info['warm']}; launches {got}, refused {counts['refused']} "
-        "(by (B, Sq, Sk, H, D) " + ", ".join(f"{k}: {n}" for k, n in counts["by_shape"].items())
+        f"{peak_gb:.1f} GiB; warm {info['warm']}; {n_tiles} tiles, {calls} UNet calls a step; "
+        f"launches {got}, refused {counts['refused']} (by (B, Sq, Sk, H, D) "
+        + ", ".join(f"{k}: {n}" for k, n in counts["by_shape"].items())
         + f"); {len(progress)} progress lines; {len(names)} PNGs {frames.shape} mean "
-        f"{frames.mean():.3f} std {frames.std():.3f}, frame-to-frame std "
-        f"{frames.astype(np.float32).std(axis=0).mean():.3f}; gif {gif_frames} frames, mp4 "
-        f"{mp4_bytes} bytes")
+        f"{frames.mean():.3f} std {frames.std():.3f}, frame-to-frame std {motion:.3f}; gif "
+        f"{gif_frames} frames, mp4 {mp4_bytes} bytes")
     checks = {
-        "64 PNGs of 512x512x3": frames.shape == (LONGVIDEO_FRAMES, hw, hw, 3),
-        "gif of 64 frames, mp4 written": gif_frames == LONGVIDEO_FRAMES and mp4_bytes > 0,
-        "frames not constant": frames.std() > 1.0
-        and frames.astype(np.float32).std(axis=0).mean() > 0.0,
-        "one progress line per 5-step segment": len(progress) == -(-steps // 5),
+        f"{n_tiles} tiles": tile_indices(n_frames, 16, 4).shape[0] == n_tiles,
+        f"{n_frames} PNGs of 512x512x3": frames.shape == (n_frames, hw, hw, 3),
+        f"gif of {n_frames} frames, mp4 written": gif_frames == n_frames and mp4_bytes > 0,
+        "frames not constant": frames.std() > 1.0 and motion > 0.0,
+        f"one progress line per {per_segment}-step segment":
+            len(progress) == -(-steps // per_segment),
         f"{want[RES_KERNEL]} resident launches": got[RES_KERNEL] == want[RES_KERNEL],
         f"{want[FWD_KERNEL]} streamed launches": got[FWD_KERNEL] == want[FWD_KERNEL],
+        f"UNet launches at batch {rows}": all(counts["by_shape"].get(k) == n
+                                              for k, n in want_unet.items()),
         f"{want['refused']} refused": counts["refused"] == want["refused"],
         "no backward launches": got[DKV_KERNEL] == got[DQ_KERNEL] == 0,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"the 64-frame CLI request at budget {budget} failed its checks: {failed}")
-    return dict(seconds=sec, wall=wall, phases=info["phases"], peak_gib=peak_gb, **counts)
+        raise SystemExit(f"the {n_frames}-frame CLI request at budget {budget} failed its "
+                         f"checks: {failed}")
+    return dict(seconds=sec, wall=wall, phases=info["phases"], peak_gib=peak_gb, steps=steps,
+                **counts)
 
 
 def phase_longvideo(steps: int):
-    """The 64-frame CLI request on the resident route (budget 4 MiB), then on
-    the streamed route (budget 0); returns the first, with the second under
-    "streamed"."""
+    """The 64-frame CLI request on the resident route (budget 4 MiB) at
+    `steps`, then on the streamed route (budget 0) at
+    LONGVIDEO_STREAMED_STEPS; the routes compared by denoise seconds per
+    step. Returns the first, with the second under "streamed"."""
     resident = _longvideo_request(steps, RESIDENT_BUDGET)
     torch.cuda.empty_cache()
-    streamed = _longvideo_request(steps, 0)
-    log(f"[longvideo] 64-frame request: resident route (budget {RESIDENT_BUDGET}) "
-        f"{resident['seconds']:.3f} s, streamed route (budget 0) {streamed['seconds']:.3f} s, "
-        f"resident / streamed {resident['seconds'] / streamed['seconds']:.4f}")
+    streamed = _longvideo_request(min(steps, LONGVIDEO_STREAMED_STEPS), 0)
+    per_step = {name: r["phases"]["denoise"] / r["steps"]
+                for name, r in (("resident", resident), ("streamed", streamed))}
+    log(f"[longvideo] 64-frame request, denoise seconds per step: resident route (budget "
+        f"{RESIDENT_BUDGET}, {resident['steps']} steps) {per_step['resident']:.4f} s, streamed "
+        f"route (budget 0, {streamed['steps']} steps) {per_step['streamed']:.4f} s, resident / "
+        f"streamed {per_step['resident'] / per_step['streamed']:.4f}")
     return dict(resident, streamed=streamed)
+
+
+def phase_longvideo450(steps: int) -> dict:
+    """E2E_LONGVID_r05_450f.json's request: the CLI on 450 seeded 512x512 pose
+    PNGs at resident budget 0 (the port's default)."""
+    return _longvideo_request(steps, 0, LONG450_FRAMES)
 
 
 def _keep_every_value(fn, *inputs):
@@ -1910,9 +2100,63 @@ def phase_serve(root: str, gen: dict | None, steps: int) -> dict:
     return results
 
 
+def _train_steps(state, step_fn, batch, generator, tag: str, expected: dict):
+    """One warm-up and TRAIN_TIMED_STEPS timed steps of `step_fn` on `batch`;
+    loss and grad_norm finite, the launches of every kernel equal to
+    `expected`, and the sampled fp32 masters moved by every update at a
+    nonzero lr (update 0 runs at lr 0). Returns the steps' records and the
+    timed steps' mean seconds and phases."""
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+
+    b, f, h, w, _ = batch["frames"].shape
+    # a sample of every master: the first 4096 elements of each tensor
+    sample = [m.flatten()[:4096].clone() for m in state.masters]
+    steps = []
+    for i in range(1 + TRAIN_TIMED_STEPS):
+        run = "warm-up" if i == 0 else f"timed {i}"
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=generator, timings=timings)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = _launch_counts()
+        loss, gn = metrics["loss"].item(), metrics["grad_norm"].item()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        moved = sum(int((m.flatten()[:4096] != s).sum()) for m, s in zip(state.masters, sample))
+        sample = [m.flatten()[:4096].clone() for m in state.masters]
+        lr = state.optimizer.param_groups[0]["lr"]
+        log(f"[train] {tag}step {state.step} ({run}, update {state.updates - 1} at lr "
+            f"{lr:.3e}): {total:.3f} s; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+            + f"; peak {peak_gb:.1f} GiB; loss {loss:.5f} grad_norm {gn:.4f}; sampled masters "
+            f"moved {moved} of {sum(s.numel() for s in sample)}; launches "
+            + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items()))
+        if not (torch.isfinite(torch.tensor([loss, gn])).all() and gn > 0):
+            raise SystemExit(f"{tag}training step {state.step}: loss {loss}, grad_norm {gn}")
+        if counts["by_kernel"] != expected:
+            raise SystemExit(f"{tag}training step launched {counts['by_kernel']}, expected "
+                             f"{expected}")
+        if lr > 0 and moved == 0:
+            raise SystemExit(f"the fp32 master parameters did not move in update "
+                             f"{state.updates - 1} at lr {lr}")
+        steps.append(dict(seconds=total, phases=timings, loss=loss, grad_norm=gn,
+                          peak_gib=peak_gb, **counts))
+    timed = steps[1:]
+    sec = sum(s["seconds"] for s in timed) / len(timed)
+    phases = {k: sum(s["phases"][k] for s in timed) / len(timed) for k in timed[0]["phases"]}
+    peak = max(s["peak_gib"] for s in steps)
+    log(f"[train] {tag}{len(timed)} timed steps: {sec:.3f} s/step, {3600.0 / sec:.1f} clips/hour "
+        f"({b} clip of {f} frames at {h}x{w} (height x width) per step); phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+        + f"; peak {peak:.1f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
+    return dict(steps=steps, sec_per_step=sec, phases=phases, peak_gib=peak)
+
+
 def phase_train():
     from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models
     from stableanimator_tpu_torch.train.train_step import create_train_state, make_train_step
 
@@ -1931,50 +2175,17 @@ def phase_train():
         "allocated")
     pipe = PipelineConfig()
     step_fn = make_train_step(models, cfg, pipe)
-    batch = _train_batch(1, cfg.sample_n_frames, pipe.height,
-                         models.face_encoder.config.id_embeddings_dim, "cuda")
+    id_dim = models.face_encoder.config.id_embeddings_dim
+    batch = _train_batch(1, cfg.sample_n_frames, pipe.height, pipe.width, id_dim, "cuda")
     generator = torch.Generator(device="cuda").manual_seed(0)
-    # a sample of every master: the first 4096 elements of each tensor
-    sample = [m.flatten()[:4096].clone() for m in state.masters]
-    steps = []
-    for i in range(1 + TRAIN_TIMED_STEPS):
-        run = "warm-up" if i == 0 else f"timed {i}"
-        torch.cuda.reset_peak_memory_stats()
-        timings: dict = {}
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, generator=generator, timings=timings)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        counts = _launch_counts()
-        loss, gn = metrics["loss"].item(), metrics["grad_norm"].item()
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        moved = sum(int((m.flatten()[:4096] != s).sum()) for m, s in zip(state.masters, sample))
-        sample = [m.flatten()[:4096].clone() for m in state.masters]
-        log(f"[train] step {state.step} ({run}, update {state.updates - 1} at lr "
-            f"{state.optimizer.param_groups[0]['lr']:.3e}): {total:.3f} s; phases "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-            + f"; peak {peak_gb:.1f} GiB; loss {loss:.5f} grad_norm {gn:.4f}; sampled masters "
-            f"moved {moved} of {sum(s.numel() for s in sample)}; launches "
-            + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items()))
-        if not (torch.isfinite(torch.tensor([loss, gn])).all() and gn > 0):
-            raise SystemExit(f"training step {state.step}: loss {loss}, grad_norm {gn}")
-        if counts["by_kernel"] != TRAIN_LAUNCHES:
-            raise SystemExit(f"training step launched {counts['by_kernel']}, expected "
-                             f"{TRAIN_LAUNCHES}")
-        # update 0 runs at lr 0; update 1 at lr 2e-8 moves the fp32 masters
-        if i == 1 and moved == 0:
-            raise SystemExit("the fp32 master parameters did not move in update 1")
-        steps.append(dict(seconds=total, phases=timings, loss=loss, grad_norm=gn,
-                          peak_gib=peak_gb, **counts))
-    timed = steps[1:]
-    sec = sum(s["seconds"] for s in timed) / len(timed)
-    phases = {k: sum(s["phases"][k] for s in timed) / len(timed) for k in timed[0]["phases"]}
-    log(f"[train] {len(timed)} timed steps: {sec:.3f} s/step, {3600.0 / sec:.1f} clips/hour "
-        f"(1 clip of {cfg.sample_n_frames} frames at {pipe.height}x{pipe.width} per step); "
-        "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
-        + f"; peak {max(s['peak_gib'] for s in timed):.1f} GiB")
-    return dict(steps=steps, sec_per_step=sec, phases=phases), (state, step_fn, batch, generator)
+    out = _train_steps(state, step_fn, batch, generator, "", TRAIN_LAUNCHES)
+    # the vertical bucket on the same state, as MixedResolutionSampler
+    # alternates buckets (the step takes any frame size)
+    vbatch = _train_batch(1, cfg.sample_n_frames, *VERTICAL_HW, id_dim, "cuda", seed=1)
+    out["vertical"] = _train_steps(state, step_fn, vbatch, generator, "vertical ",
+                                   VTRAIN_LAUNCHES)
+    del vbatch
+    return out, (state, step_fn, batch, generator)
 
 
 def _write_dataset(root: str, n_frames: int, hw: int) -> str:
@@ -2131,7 +2342,7 @@ def _parallel_train(mesh) -> dict:
 
     models = build_models(dtype=torch.float32, device="cuda", seed=0, remat=True)
     cfg, pipe = TrainConfig(), PipelineConfig()
-    batch = _train_batch(1, cfg.sample_n_frames, pipe.height,
+    batch = _train_batch(1, cfg.sample_n_frames, pipe.height, pipe.width,
                          models.face_encoder.config.id_embeddings_dim, "cuda")
     runs = {}
     zero = n_train = None
@@ -2314,48 +2525,57 @@ def _small_quant():
 def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) -> dict:
     """The int8 path (W8A8, build_models(quant=True)): int8_dense on the
     card, a micro quant generate card vs CPU, then the full-width request
-    built with quant=True from the generate phase's seed (warm-up and
-    timed), its launches, frames and their difference from the bf16
-    request's; one quant request under the profiler."""
+    built with quant=True from the generate phase's seed (a
+    QUANT_SHORT_STEPS-step warm-up, then the timed request at the generate
+    phase's steps), its launches, frames and, for the timed one, their
+    difference from the bf16 request's; one QUANT_SHORT_STEPS-step quant
+    request under the profiler."""
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 
     _quant_dense_check()
     _small_quant()
     models = build_models(dtype=torch.bfloat16, device="cuda", seed=0, quant=True)
-    expected = 10 * cfg.num_inference_steps + 1
+    short = dataclasses.replace(cfg, num_inference_steps=min(QUANT_SHORT_STEPS,
+                                                             cfg.num_inference_steps))
     out = {}
-    for run in ("warm-up", "timed"):
+    for run, run_cfg in (("warm-up", short), ("timed", cfg)):
+        expected = 10 * run_cfg.num_inference_steps + 1
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         timings: dict = {}
         t0 = time.perf_counter()
-        frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings)
+        frames = generate(models, ref, pose, face, run_cfg, device="cuda", timings=timings)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = _launch_counts()
-        f32, p32 = frames.float(), plain_frames.float()
-        d = (f32 - p32).abs()
-        corr = torch.corrcoef(torch.stack([f32.flatten(), p32.flatten()]))[0, 1].item()
+        f32 = frames.float()
         finite = bool(torch.isfinite(f32).all())
         lo, hi = f32.min().item(), f32.max().item()
-        out[run] = dict(seconds=sec, phases=timings, mean_diff=d.mean().item(),
-                        max_diff=d.max().item(), corrcoef=corr,
+        out[run] = dict(seconds=sec, phases=timings,
                         peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
-        log(f"[quant] {run} request (quant=True): {sec:.3f} s, {cfg.num_frames / sec:.3f} frames/s "
+        against = ""
+        if run_cfg is cfg:            # the bf16 request's steps: its frames compare
+            p32 = plain_frames.float()
+            d = (f32 - p32).abs()
+            corr = torch.corrcoef(torch.stack([f32.flatten(), p32.flatten()]))[0, 1].item()
+            out[run].update(mean_diff=d.mean().item(), max_diff=d.max().item(), corrcoef=corr)
+            against = (f"; against the bf16 frames: mean |diff| {out[run]['mean_diff']:.4e}, "
+                       f"max {out[run]['max_diff']:.4e}, corrcoef {corr:.5f}")
+        log(f"[quant] {run} request (quant=True, {run_cfg.num_inference_steps} steps): {sec:.3f} "
+            f"s, {run_cfg.num_frames / sec:.3f} frames/s "
             f"(bf16 request {gen['timed']['seconds']:.3f} s); phases "
             + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
             + f"; peak {out[run]['peak_gib']:.1f} GiB; flash launches "
             f"{counts['by_kernel'][FWD_KERNEL]} (expected {expected}); frames finite={finite} "
-            f"range [{lo:.4f}, {hi:.4f}]; against the bf16 frames: mean |diff| "
-            f"{out[run]['mean_diff']:.4e}, max {out[run]['max_diff']:.4e}, corrcoef {corr:.5f}")
+            f"range [{lo:.4f}, {hi:.4f}]{against}")
         if counts["by_kernel"][FWD_KERNEL] != expected:
             raise SystemExit(f"the quant request launched {counts['by_kernel']}")
         if not finite or lo < 0.0 or hi > 1.0:
             raise SystemExit("quant request frames not finite or outside [0, 1]")
     if profile:
-        _profile("one quant request",
-                 lambda: generate(models, ref, pose, face, cfg, device="cuda"))
+        _profile(f"one {short.num_inference_steps}-step quant request",
+                 lambda: generate(models, ref, pose, face, short, device="cuda"))
     del models, frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -2363,16 +2583,19 @@ def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) ->
 
 
 def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None,
-                    parallel=None, quant=None) -> list:
+                    parallel=None, quant=None, pro=None) -> list:
     """The JSON line's entries: each kernel's times at its shapes, weighted
     by the launches the main paths made at those shapes (generate's timed
-    request, the timed face-opt request, the mesh request and the mesh
-    training step, the timed quant request, the server's first request, the
-    64-frame CLI request, one timed training step and the timed face-opt
+    request, the timed 576x1024 request, the timed face-opt request, the
+    mesh request and the mesh training step, the timed quant request, the
+    server's first request, the 64-frame CLI request, one timed training
+    step at 512x512 and one on the vertical bucket, and the timed face-opt
     request at crop 32)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
+    if pro:
+        paths["pro"] = {(FWD_KERNEL, key): n for key, n in pro["timed"]["by_shape"].items()}
     if faceopt:
         paths["faceopt"] = faceopt["timed"]["by_shape"]
         paths[f"faceopt_crop{FACEOPT_BIG_CROP}"] = (
@@ -2388,6 +2611,7 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
         paths["longvideo"] = longvideo["by_shape"]
     if train:
         paths["train"] = train["steps"][-1]["by_shape"]
+        paths["train_vertical"] = train["vertical"]["steps"][-1]["by_shape"]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     entries = []
     for name in KERNELS:
@@ -2409,19 +2633,28 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
                                    **{key: sum(by_key[k][key] * n for k, n in counts.items())
                                       for key in keys})
             total = {key: sum(pp[key] for pp in per_path.values()) for key in keys}
+        # what bounds the larger part of bound_ms over the paths' launches
+        # (every timed shape's when no path ran)
+        share = collections.Counter()
+        for counts in launches.values():
+            for k, n in counts.items():
+                share[by_key[k]["bound_by"]] += by_key[k]["bound_ms"] * n
+        if not +share:
+            share.update(r["bound_by"] for _, r in rows[name])
+        bound_by = max(("operations", "bytes"), key=lambda by: share[by])
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(pp["launches"] for pp in per_path.values()) if paths else None,
             "max_abs_err": max_err[name],
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": ("operations" if all(r["bound_by"] == "operations" for _, r in rows[name])
-                         else "bytes"),
+            "bound_by": bound_by,
             "library_ms": total["library_ms"],
             "per_request_of": "sum over the launches of generate's timed request, of the "
-                              "timed face-opt requests at crops 16 and 32, of the mesh "
-                              "request and the mesh training step, of the timed quant "
-                              "request, of the server's first request, of the 64-frame CLI "
-                              "request and of one timed training step",
+                              "timed 576x1024 request, of the timed face-opt requests at "
+                              "crops 16 and 32, of the mesh request and the mesh training "
+                              "step, of the timed quant request, of the server's first "
+                              "request, of the 64-frame CLI request and of one timed "
+                              "training step at 512x512 and one on the vertical bucket",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -2436,10 +2669,15 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
-                        help=f"comma-separated subset of {ALL_PHASES}")
+                        help=f"comma-separated subset of {ALL_PHASES + EXTRA_PHASES}; the "
+                        f"default is {ALL_PHASES} ({EXTRA_PHASES} only when named, e.g. "
+                        "--phases device,build,longvideo450)")
     parser.add_argument("--steps", type=int, default=25, help="Euler steps per request")
     args = parser.parse_args()
     phases = args.phases.split(",")
+    unknown = set(phases) - set(ALL_PHASES + EXTRA_PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2474,7 +2712,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
     if "build" in phases:
         phase_build()
         took("build")
-    gen = longvideo = train = face = faceopt = served = parallel = quant = None
+    gen = longvideo = train = face = faceopt = served = parallel = quant = pro = None
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
         took("kernels")
@@ -2495,6 +2733,9 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
             profile_generate(*state)
         phase_ab(*state)
         took("generate")
+        if "pro" in phases:
+            pro = phase_pro(state[0], steps)
+            took("pro")
         if "faceopt" in phases:
             faceopt = phase_faceopt(*state, gen, plain_frames, face)
             took("faceopt")
@@ -2525,6 +2766,10 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         phase_driving(steps, dwpose)
         torch.cuda.empty_cache()
         took("longvideo")
+    if "longvideo450" in phases:
+        phase_longvideo450(steps)
+        torch.cuda.empty_cache()
+        took("longvideo450")
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()
         if "profile" in phases:
@@ -2536,7 +2781,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         took("train")
     if "kernels" in phases:
         log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
-                                                   served, parallel, quant)}))
+                                                   served, parallel, quant, pro)}))
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
