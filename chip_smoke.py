@@ -81,7 +81,8 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            shape / range and the kernel launch counts are asserted; the
            timed request's launches, counted by shape, weight the forward
            kernel's per-request times; then the resident A/B: the same
-           request with SA_TPU_RESIDENT_KV_MAX_BYTES at 0 and at 4 MiB in
+           request at AB_STEPS Euler steps with
+           SA_TPU_RESIDENT_KV_MAX_BYTES at 0 and at 4 MiB in
            turns (0, 4 MiB, 4 MiB, 0), each route's launches asserted
   pro      the reference's 576x1024 request (E2E_PRO_r05.json: 16 frames,
            CFG 3.0, tile 16, decode chunk 4) on the generate phase's models
@@ -163,8 +164,21 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            two one-device steps on the same batch, noises and seed (loss and
            grad_norm within their run-to-run spread), time and peak memory;
            ZeRO-1's optimizer bytes per rank at data 1, 2, 4, 8 (reckoned);
-           then the process group is destroyed and the training CLI runs
-           under torchrun (one process) for 2 micro steps and a resume
+           then the process group is destroyed, the generate phase's models
+           go to the host (the card's free memory printed), and FRAME_RANKS
+           processes of this script (`--frame_worker`) share the card in a
+           gloo world on a 1 x 2 (data, frame) mesh: each first probes which
+           collectives gloo takes on card tensors (all_gather,
+           all_to_all_single, broadcast, all_reduce; any refusal fails),
+           then two fp32 micro steps against the same in one CPU process
+           (SMALL_ATOL on loss and grad_norm, the micro train check's rule
+           on the masters), then FRAME_STEPS full-width steps (TrainConfig
+           defaults, the one-device steps' batch and seed, ZeRO-1 over data
+           x frame) whose first loss and grad_norm must lie within
+           FRAME_LOSS_RTOL / FRAME_GRAD_RTOL of the one-device step's; each
+           rank prints its seconds, peak memory and launches (asserted
+           20 / 10 / 10); then the training CLI runs under torchrun (one
+           process) for 2 micro steps and a resume
   quant    the int8 path (W8A8, build_models(quant=True)): int8_dense on the
            card against the fp32 product (tests/test_ops.py's bounds) and
            its int8 weights against the CPU's; a micro quant generate card vs
@@ -233,7 +247,8 @@ RESIDENT_BUDGET = 4 * 1024 * 1024
 # request, 128x72 for the vertical training bucket): UNet levels 0, 1 and 2
 # hold 9216, 2304 and 576 tokens (level 2 passes the 512-key cut there), and
 # the pro request's sequential decode runs the VAE's mid attention on 4
-# frames at a time
+# frames at a time; the frame-sharded training step (1 x 2 mesh) runs levels
+# 0 and 1 on each rank's 8 frames
 PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("unet_level1", (32, 1024, 10, 64), False),
                ("vae_mid", (16, 4096, 1, 512), False),
@@ -246,14 +261,18 @@ PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("pro_vae_mid", (4, 9216, 1, 512), False),
                ("vtrain_level0", (16, 9216, 5, 64), True),
                ("vtrain_level1", (16, 2304, 10, 64), True),
-               ("vtrain_level2", (16, 576, 20, 64), True))
-# the backward kernels' shapes on the training path (d = 64; at 512x512 and
-# on the vertical bucket) and on the face optimisation's refines (d = 512:
+               ("vtrain_level2", (16, 576, 20, 64), True),
+               ("frame_train_level0", (8, 4096, 5, 64), True),
+               ("frame_train_level1", (8, 1024, 10, 64), True))
+# the backward kernels' shapes on the training path (d = 64; at 512x512, on
+# the vertical bucket and on a rank of the frame-sharded step) and on the face optimisation's refines (d = 512:
 # the VAE decoder's mid attention over a 16-frame crop of 24 and of 32
 # latents; the face-opt request runs crop 32)
 TRAIN_SHAPES = (("train_level0", (16, 4096, 5, 64)), ("train_level1", (16, 1024, 10, 64)),
                 ("vtrain_level0", (16, 9216, 5, 64)), ("vtrain_level1", (16, 2304, 10, 64)),
-                ("vtrain_level2", (16, 576, 20, 64)))
+                ("vtrain_level2", (16, 576, 20, 64)),
+                ("frame_train_level0", (8, 4096, 5, 64)),
+                ("frame_train_level1", (8, 1024, 10, 64)))
 # the plain versions hold fp32 [B, H, Sq, Sk] scores (the backward two such
 # tensors at once): 54 GB at the pro request's level 0, so past
 # PLAIN_SCORE_BYTES of scores they run over chunks of the batch, whose rows
@@ -389,6 +408,28 @@ EXTRA_PHASES = ("longvideo450",)
 # at PARALLEL_SPREAD_FLOOR of the value, a few fp32 roundings, in case a
 # kernel ever sums in another order
 PARALLEL_FRAMES_ATOL, PARALLEL_SPREAD_FLOOR = 0.0, 1e-6
+# the parallel phase's frame-sharded steps: FRAME_RANKS processes share the
+# card in a gloo world (NCCL refuses two ranks on one device) on a 1 x 2
+# (data, frame) mesh, ZeRO-1 over both axes. The full-width bf16 step on the
+# one-device runs' batch, draws and seed computes their function in another
+# rounding: each rank's bf16 weight gradients sum 8 frames' rows in the GEMM
+# and round once, then the two halves add in fp32 (the one-device step rounds
+# the 16 frames' sum once); the temporal GroupNorms' fp32 sums and the halo
+# convolutions' cuDNN algorithms differ. A bf16 rounding is 2^-9 of a value;
+# the loss, a mean over 262,144 latent elements of values that moved by such
+# roundings through the UNet, within FRAME_LOSS_RTOL of the one-device loss,
+# and grad_norm, over 1.6 B gradients each moved by a few roundings, within
+# FRAME_GRAD_RTOL. The micro fp32 step on the card (TF32 off) against one CPU
+# process: SMALL_ATOL relative on loss and grad_norm, and _small_train's rule
+# on the masters. FRAME_STEPS full-width steps: the first (update 0, at lr
+# 0) is compared, the second is warm
+FRAME_RANKS, FRAME_LOSS_RTOL, FRAME_GRAD_RTOL, FRAME_STEPS = 2, 1e-3, 1e-2, 2
+# seconds the full-width ranks may take, start to exit
+FRAME_TIMEOUT = 600
+# the frame-sharded step's peak device memory per rank, predicted before the
+# first run (PERF.md): half the AdamW moments of the one-device step's 41.0
+# GiB and about half its activations
+FRAME_PREDICTED_GIB = (29.0, 36.0)
 # the quant phase's micro generate, card vs CPU: the int8 path is
 # discontinuous (an activation on a rounding boundary moves by one int8
 # step, and the next layers' inputs with it), so the bound is not rounding:
@@ -460,6 +501,9 @@ LONGVIDEO_STREAMED_STEPS = 10
 # the quant phase's warm-up request and its profiled request run
 # QUANT_SHORT_STEPS Euler steps; its timed request runs --steps
 QUANT_SHORT_STEPS = 5
+# the A/B's four flat requests run AB_STEPS Euler steps: enough for the
+# routes' ratio, and the run's time goes to the parallel phase's ranks
+AB_STEPS = 5
 # the face phase: the ONNX executor on an iresnet100 stand-in (glintr100's
 # architecture) at batch 16 against the torch module. In fp64 on both sides
 # the output and the input gradient must agree within 1e-9 of their largest
@@ -1085,12 +1129,14 @@ def _resident_budget(nbytes: int):
 
 
 def phase_ab(models, cfg, ref, pose, face):
-    """The flat 16-frame request with the resident budget at 0 (streamed
-    kernel) and at 4 MiB (resident kernel at UNet levels 0 and 1), in turns
-    0, 4 MiB, 4 MiB, 0; each run's launches asserted."""
+    """The flat 16-frame request at AB_STEPS Euler steps with the resident
+    budget at 0 (streamed kernel) and at 4 MiB (resident kernel at UNet
+    levels 0 and 1), in turns 0, 4 MiB, 4 MiB, 0; each run's launches
+    asserted."""
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import generate
 
+    cfg = dataclasses.replace(cfg, num_inference_steps=min(AB_STEPS, cfg.num_inference_steps))
     steps = cfg.num_inference_steps
     expected = {0: {FWD_KERNEL: 10 * steps + 1, RES_KERNEL: 0},
                 RESIDENT_BUDGET: {FWD_KERNEL: 1, RES_KERNEL: 10 * steps}}
@@ -1109,7 +1155,7 @@ def phase_ab(models, cfg, ref, pose, face):
             raise SystemExit(f"A/B at budget {budget}: launches {got}, expected {expected[budget]}")
         times[budget].append(sec)
     mean = {b: sum(t) / len(t) for b, t in times.items()}
-    log(f"[ab] flat {cfg.num_frames}-frame request: streamed route (budget 0) "
+    log(f"[ab] flat {cfg.num_frames}-frame {steps}-step request: streamed route (budget 0) "
         f"{', '.join(f'{t:.3f}' for t in times[0])} s, mean {mean[0]:.3f} s; resident route "
         f"(budget {RESIDENT_BUDGET}) {', '.join(f'{t:.3f}' for t in times[RESIDENT_BUDGET])} s, "
         f"mean {mean[RESIDENT_BUDGET]:.3f} s; resident / streamed "
@@ -2422,13 +2468,306 @@ def _torchrun_cli():
             raise SystemExit(f"the torchrun CLI's run and resume: {saved}")
 
 
+def _gloo_probe(mesh) -> dict:
+    """Which of the collectives that the frame-sharded step runs gloo takes
+    on card tensors in this world: each one's outcome, "accepted" (the
+    right values), "wrong values" or "refused: <error>"."""
+    import torch.distributed as dist
+
+    group = mesh.group("frame")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    x = torch.arange(2.0 * n, device="cuda") + 100 * r
+    out = {}
+
+    def probe(name, fn):
+        try:
+            out[name] = "accepted" if fn() else "wrong values"
+        except RuntimeError as e:        # the probe reports, the step never falls back
+            out[name] = f"refused: {str(e).splitlines()[0][:200]}"
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return all(torch.equal(p, x - 100 * r + 100 * i) for i, p in enumerate(parts))
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        want = torch.cat([torch.arange(2.0 * r, 2.0 * r + 2, device="cuda") + 100 * i
+                          for i in range(n)])
+        return torch.equal(y, want)
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=mesh.src_rank("frame"), group=group)
+        return torch.equal(y, x - 100 * r)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return torch.equal(y, n * (x - 100 * r) + 100 * sum(range(n)))
+
+    for fn in (all_gather, all_to_all_single, broadcast, all_reduce):
+        probe(fn.__name__, fn)
+    return out
+
+
+def _frame_micro(mesh, tmp: str) -> dict:
+    """Two fp32 micro training steps on the card, this rank's block of the
+    batch (tmp/micro_inputs.pt: weights, batch, draws)."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import build_models
+    from stableanimator_tpu_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+        shard_batch,
+    )
+
+    probe = _gloo_probe(mesh)
+    log(f"[parallel] gloo on card tensors, world {mesh.size} on one card: "
+        + ", ".join(f"{k} {v}" for k, v in probe.items()))
+    if any(v != "accepted" for v in probe.values()):
+        raise SystemExit(f"gloo does not take every collective on card tensors: {probe}")
+    inputs = torch.load(os.path.join(tmp, "micro_inputs.pt"), weights_only=False)
+    models = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cuda", seed=None)
+    for m, sd in zip(models, inputs["state_dicts"]):
+        m.load_state_dict(sd)
+    cfg = TrainConfig(mixed_precision="no", learning_rate=SMALL_TRAIN_LR, lr_warmup_steps=1)
+    state = create_train_state(models, cfg, mesh=mesh)
+    step_fn = make_train_step(models, cfg, PipelineConfig(), conditioning_dropout_prob=0.0,
+                              mesh=mesh)
+    batch = shard_batch({k: v.to("cuda") for k, v in inputs["batch"].items()}, mesh)
+    metrics = []
+    for noises in inputs["noises"]:
+        state, m = step_fn(state, batch, noises={k: v.to("cuda") for k, v in noises.items()})
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    return {"probe": probe, "metrics": metrics, "masters": [m.cpu() for m in state.masters]}
+
+
+def _frame_full(mesh, tmp: str) -> dict:
+    """FRAME_STEPS full-width training steps (TrainConfig defaults, remat,
+    1x16x512x512, the one-device runs' batch and generator seed) on this
+    rank's 8 frames; each step's seconds, peak memory, launches (which must
+    be TRAIN_LAUNCHES), loss and grad_norm."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import build_models
+    from stableanimator_tpu_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+        shard_batch,
+    )
+
+    t0 = time.perf_counter()
+    models = build_models(dtype=torch.float32, device="cuda", seed=0, remat=True)
+    cfg, pipe = TrainConfig(), PipelineConfig()
+    state = create_train_state(models, cfg, mesh=mesh)
+    step_fn = make_train_step(models, cfg, pipe, mesh=mesh)
+    batch = shard_batch(_train_batch(1, cfg.sample_n_frames, pipe.height, pipe.width,
+                                     models.face_encoder.config.id_embeddings_dim, "cuda"), mesh)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    rank = mesh.axis_index(("data", "frame"))
+    log(f"[parallel] frame rank {rank}: models and ZeRO-1 state built in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated; frames {tuple(batch['frames'].shape)}")
+    steps = []
+    for i in range(FRAME_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=generator, timings=timings)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _launch_counts()
+        step = dict(seconds=sec, phases=timings, loss=metrics["loss"].item(),
+                    grad_norm=metrics["grad_norm"].item(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, **counts)
+        steps.append(step)
+        log(f"[parallel] frame rank {rank} step {i + 1}: {sec:.3f} s; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+            + f"; peak {step['peak_gib']:.2f} GiB; loss {step['loss']!r} grad_norm "
+            f"{step['grad_norm']!r}; launches "
+            + ", ".join(f"{k} {n}" for k, n in counts["by_kernel"].items()))
+        if counts["by_kernel"] != TRAIN_LAUNCHES:
+            raise SystemExit(f"frame rank {rank} step {i + 1} launched {counts['by_kernel']}")
+    held = 4 * sum(v.numel() for st in state.optimizer.state.values() for v in st.values()
+                   if v.dim() > 0)
+    return {"steps": steps, "moment_bytes": held}
+
+
+def _frame_worker(task: str, rank: int, world: int, tmp: str) -> int:
+    """One rank of the parallel phase's frame-sharded runs, a process of its
+    own (`python3 chip_smoke.py --frame_worker TASK --rank R --world N
+    --tmp DIR`): a gloo world of `world` processes on the one card (its
+    FileStore in tmp), a 1 x world mesh, TASK ("micro" or "full"); its
+    result goes to tmp/<task><rank>.pt."""
+    import torch.distributed as dist
+
+    from stableanimator_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"{task}_store"),
+                                                         world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(1, world, device="cuda")          # the gloo world's
+        out = {"micro": _frame_micro, "full": _frame_full}[task](mesh, tmp)
+        torch.save(out, os.path.join(tmp, f"{task}{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _frame_ranks(task: str, tmp: str, timeout: float, while_running=None):
+    """Run `task` in FRAME_RANKS processes on the card (`_frame_worker`);
+    call while_running() meanwhile; print each rank's log; their results in
+    rank order, and while_running's result. Every rank is stopped before
+    this returns; a rank that fails fails the run."""
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--frame_worker", task, "--rank", str(r),
+                               "--world", str(FRAME_RANKS), "--tmp", tmp],
+                              cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(FRAME_RANKS)]
+    logs = []
+    try:
+        side = while_running() if while_running is not None else None
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if not line.startswith("WARNING") and "UserWarning" not in line:
+                log(f"[parallel] rank {r} | {line}")
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise SystemExit(f"the frame-sharded {task} ranks failed: {bad}")
+    return [torch.load(os.path.join(tmp, f"{task}{r}.pt"), weights_only=False)
+            for r in range(FRAME_RANKS)], side
+
+
+def _frame_micro_check(tmp: str):
+    """The micro fp32 step on a 1 x 2 frame mesh of two processes on the
+    card against the same two steps in one CPU process (the gloo probe
+    first, in the ranks)."""
+    from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig, micro_model_kwargs
+    from stableanimator_tpu_torch.pipeline.animation import build_models
+    from stableanimator_tpu_torch.train.train_step import (
+        create_train_state,
+        draw_noises,
+        make_train_step,
+    )
+
+    cpu = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu", seed=0)
+    batch = _train_batch(1, 4, 128, 128, cpu.face_encoder.config.id_embeddings_dim, "cpu",
+                         seed=1)
+    gen = torch.Generator().manual_seed(2)
+    noises = [draw_noises(batch, 4, 0.0, None, gen) for _ in range(2)]
+    torch.save({"state_dicts": [m.state_dict() for m in cpu], "batch": batch,
+                "noises": noises}, os.path.join(tmp, "micro_inputs.pt"))
+    cfg = TrainConfig(mixed_precision="no", learning_rate=SMALL_TRAIN_LR, lr_warmup_steps=1)
+
+    def one_process():
+        state = create_train_state(cpu, cfg)
+        before = [m.clone() for m in state.masters]
+        step_fn = make_train_step(cpu, cfg, PipelineConfig(), conditioning_dropout_prob=0.0)
+        metrics = []
+        for nz in noises:
+            state, m = step_fn(state, batch, noises=nz)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        return metrics, state.masters, before
+
+    ranks, (m_cpu, p_cpu, before) = _frame_ranks("micro", tmp, 300, one_process)
+    for r, got in enumerate(ranks):
+        rel = max(abs(a - b) / abs(a) for x, y in zip(m_cpu, got["metrics"])
+                  for a, b in zip(x, y))
+        diff = torch.cat([(a - b).flatten() for a, b in zip(got["masters"], p_cpu)])
+        upd_cpu = torch.cat([(a - b).flatten() for a, b in zip(p_cpu, before)])
+        upd = torch.cat([(a - b).flatten() for a, b in zip(got["masters"], before)])
+        decided = (upd_cpu.abs() > SMALL_TRAIN_LR / 2) & (upd.abs() > SMALL_TRAIN_LR / 2)
+        err_decided = diff[decided].abs().max().item()
+        rms_share = (diff.square().mean().sqrt() / upd_cpu.square().mean().sqrt()).item()
+        ok = rel <= SMALL_ATOL and err_decided <= 1e-6 and rms_share <= 1e-2
+        log(f"[parallel] micro fp32 128x128x4 frames, 2 steps on a 1 x {FRAME_RANKS} frame mesh "
+            f"of gloo ranks on the card, rank {r} vs one CPU process: loss/grad_norm "
+            + "; ".join(f"cpu {a[0]:.6f}/{a[1]:.5f} card {b[0]:.6f}/{b[1]:.5f}"
+                        for a, b in zip(m_cpu, got["metrics"]))
+            + f", max rel {rel:.2e} (tol {SMALL_ATOL}); masters: max|diff| {err_decided:.2e} "
+            f"on the {int(decided.sum())} of {diff.numel()} elements whose update exceeded "
+            f"lr/2 (tol 1e-6), rms(diff)/rms(update) {rms_share:.2e} (tol 1e-2) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the micro frame-sharded step on the card disagrees with the CPU")
+    return ranks[0]["probe"]
+
+
+@contextlib.contextmanager
+def _offloaded(models):
+    """`models` on the host and the card's cached blocks freed inside the
+    block; back on the card after."""
+    for m in models:
+        m.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        yield
+    finally:
+        for m in models:
+            m.to("cuda")
+
+
+def _frame_train(one_device: dict) -> dict:
+    """The frame-sharded full-width step in FRAME_RANKS processes sharing
+    the card, against the one-device step's loss and grad_norm."""
+    free, total = torch.cuda.mem_get_info()
+    lo, hi = FRAME_PREDICTED_GIB
+    log(f"[parallel] before the frame ranks: the card has {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB free ({(total - free) / 2**30:.1f} GiB held, this process's "
+        f"context and {torch.cuda.memory_reserved() / 2**30:.2f} GiB of its cache); "
+        f"{FRAME_RANKS} ranks at the predicted {lo}-{hi} GiB of peak allocation each")
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = _frame_micro_check(tmp)
+        t0 = time.perf_counter()
+        ranks, _ = _frame_ranks("full", tmp, FRAME_TIMEOUT)
+        wall = time.perf_counter() - t0
+    first = [r["steps"][0] for r in ranks]
+    ok = all(s["loss"] == first[0]["loss"] and s["grad_norm"] == first[0]["grad_norm"]
+             for s in first)
+    for key, rtol in (("loss", FRAME_LOSS_RTOL), ("grad_norm", FRAME_GRAD_RTOL)):
+        rel = abs(first[0][key] - one_device[key]) / abs(one_device[key])
+        log(f"[parallel] frame-sharded {key} {first[0][key]!r} vs one-device "
+            f"{one_device[key]!r}: relative {rel:.3e} (bound {rtol})")
+        ok &= rel <= rtol
+    for r, rank in enumerate(ranks):
+        peak = max(s["peak_gib"] for s in rank["steps"])
+        log(f"[parallel] frame rank {r}: steps "
+            + ", ".join(f"{s['seconds']:.3f} s" for s in rank["steps"])
+            + f"; peak {peak:.2f} GiB (predicted {lo}-{hi} GiB; one-device "
+            f"{one_device['peak_gib']:.2f} GiB); AdamW moments held "
+            f"{rank['moment_bytes'] / 1e9:.3f} GB")
+    log(f"[parallel] the frame ranks ran in {wall:.1f} s, start to exit")
+    if not ok:
+        raise SystemExit("the frame-sharded training step disagrees with the one-device step")
+    return dict(probe=probe, ranks=[r["steps"] for r in ranks], wall_seconds=wall)
+
+
 def phase_parallel(models, cfg, ref, pose, face, gen: dict, plain_frames) -> dict:
     """The (data, frame) mesh on torch.distributed over NCCL, in a world of
     one process (the machine has one card): the generate phase's request
     through generate(mesh=) against its frames and beside a plain request,
     one full-width ZeRO-1 training step beside the one-device step, the
-    ZeRO-1 bytes per rank reckoned at data 1-8, and the training CLI under
-    torchrun; then the process group goes."""
+    ZeRO-1 bytes per rank reckoned at data 1-8; then the process group goes,
+    the generate phase's models leave the card, and two gloo processes
+    sharing the card run a micro step against the CPU and the full-width
+    step on a 1 x 2 frame mesh against the one-device step; then the
+    training CLI under torchrun."""
     import torch.distributed as dist
 
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
@@ -2464,6 +2803,8 @@ def phase_parallel(models, cfg, ref, pose, face, gen: dict, plain_frames) -> dic
     del frames
     out["train"] = _parallel_train(mesh)
     dist.destroy_process_group()
+    with _offloaded(models):
+        out["frame_train"] = _frame_train(out["train"]["runs"]["one-device"])
     _torchrun_cli()
     return out
 
@@ -2590,7 +2931,7 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
     mesh request and the mesh training step, the timed quant request, the
     server's first request, the 64-frame CLI request, one timed training
     step at 512x512 and one on the vertical bucket, and the timed face-opt
-    request at crop 32)."""
+    request at crop 32, and the first frame-sharded step on both ranks)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
@@ -2603,6 +2944,10 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
     if parallel:
         paths["parallel"] = parallel["mesh"]["by_shape"]
         paths["parallel_train"] = parallel["train"]["runs"]["mesh (ZeRO-1)"]["by_shape"]
+        # the frame-sharded step's first step, both ranks' launches
+        paths["parallel_frame_train"] = collections.Counter()
+        for steps in parallel["frame_train"]["ranks"]:
+            paths["parallel_frame_train"].update(steps[0]["by_shape"])
     if quant:
         paths["quant"] = quant["timed"]["by_shape"]
     if served:
@@ -2653,8 +2998,9 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
                               "timed 576x1024 request, of the timed face-opt requests at "
                               "crops 16 and 32, of the mesh request and the mesh training "
                               "step, of the timed quant request, of the server's first "
-                              "request, of the 64-frame CLI request and of one timed "
-                              "training step at 512x512 and one on the vertical bucket",
+                              "request, of the 64-frame CLI request, of one timed "
+                              "training step at 512x512 and one on the vertical bucket, "
+                              "and of the first frame-sharded step on both ranks",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -2673,7 +3019,14 @@ def main() -> int:
                         f"default is {ALL_PHASES} ({EXTRA_PHASES} only when named, e.g. "
                         "--phases device,build,longvideo450)")
     parser.add_argument("--steps", type=int, default=25, help="Euler steps per request")
+    # one rank of the parallel phase's frame-sharded runs (started by it)
+    parser.add_argument("--frame_worker", choices=("micro", "full"), help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tmp", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.frame_worker is not None:
+        return _frame_worker(args.frame_worker, args.rank, args.world, args.tmp)
     phases = args.phases.split(",")
     unknown = set(phases) - set(ALL_PHASES + EXTRA_PHASES)
     if unknown:

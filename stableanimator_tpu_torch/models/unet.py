@@ -31,6 +31,8 @@ embedding starts at the block's offset.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,12 +50,19 @@ from stableanimator_tpu_torch.models.layers import (
     sinusoidal_embedding,
 )
 from stableanimator_tpu_torch.models.transformer import TransformerSpatioTemporalModel
+from stableanimator_tpu_torch.ops.gate import active_mesh, use_mesh
 
 
 def _run(remat: bool, module: nn.Module, *args, **kwargs):
-    """module(*args, **kwargs), checkpointed when `remat` and autograd records."""
+    """module(*args, **kwargs), checkpointed when `remat` and autograd records.
+    The recomputation runs in the backward, on autograd's thread for the
+    card, which does not see this thread's active mesh (`ops/gate.py`): it
+    gets the forward's, so that its frame collectives match the forward's."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(module, *args, use_reentrant=False, **kwargs)
+        mesh = active_mesh()
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), use_mesh(mesh)),
+                          **kwargs)
     return module(*args, **kwargs)
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from stableanimator_tpu_torch.parallel.sequence import all_reduce_sum
+
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5, stats_group=None) -> torch.Tensor:
@@ -23,7 +25,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     stats_group: a process group whose ranks hold the other blocks of x's
     axes after N (equal blocks; the frame axis of a frame-sharded video,
     `parallel/sequence.py`): the statistics' two sums are all-reduced over
-    it, so they cover the whole tensor."""
+    it, so they cover the whole tensor, and so are their gradients in the
+    backward (`sequence.all_reduce_sum`)."""
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
@@ -36,8 +39,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     else:
         sums = torch.stack([x32.sum(dim=(1, 3), keepdim=True),
                             x32.square().sum(dim=(1, 3), keepdim=True)])
-        dist.all_reduce(sums, group=stats_group)
-        sums /= xg.shape[1] * cg * dist.get_world_size(stats_group)
+        sums = all_reduce_sum(sums, stats_group)
+        sums = sums / (xg.shape[1] * cg * dist.get_world_size(stats_group))
         mean, mean_sq = sums[0], sums[1]
     del x32
     var = (mean_sq - mean.square()).clamp_min(0.0)

@@ -14,8 +14,9 @@ frame axis's in `parallel/sequence.py`). A `Sharding` says which slice a
 rank holds (`local`) and puts the full tensor back on every rank
 (`gather`). An axis of size 1 calls no collective.
 
-On CUDA the mesh runs over NCCL, one card per process; gloo only when the
-caller asks for device="cpu".
+On CUDA the mesh runs over NCCL, one card per process, unless the caller
+set the world up with gloo: gloo lets several ranks share one card, which
+NCCL refuses. On the CPU it runs over gloo.
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ class Mesh:
 
 def _init_world(backend: str) -> None:
     """Join the torch.distributed world: torchrun's (its environment), a
-    world the caller set up (its backend must serve the device), or else a
-    world of one process, in memory."""
+    world the caller set up (it must run `backend`), or else a world of one
+    process, in memory."""
     if dist.is_initialized():
         have = dist.get_backend()
         if backend not in str(have):
@@ -103,26 +104,31 @@ def _init_world(backend: str) -> None:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
 
 
+def _backend(device: torch.device) -> str:
+    """The collectives' backend for a mesh on `device`: gloo on the CPU; on
+    the card NCCL, or gloo in a world the caller set up with gloo (never
+    because NCCL failed)."""
+    if device.type == "cpu":
+        return "gloo"
+    if device.type != "cuda":
+        raise ValueError(f"no mesh on {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run the port on the CPU")
+    return "gloo" if dist.is_initialized() and dist.get_backend() == "gloo" else "nccl"
+
+
 def make_mesh(data: int = 1, frame: int = 1, devices=None, *,
               device: torch.device | str = "cuda") -> Mesh:
     """Build a (data, frame) mesh over the world's ranks, rank r at
     (r // frame, r % frame). `devices`, as the JAX function's, lists what to
     lay out: here the world's ranks, in order (the default), since every
     rank of the world joins the mesh. With the defaults (1, 1) and several
-    ranks, every rank goes on the data axis. device="cuda" runs the
-    collectives over NCCL with one card per process (LOCAL_RANK, else the
-    rank modulo the cards); "cpu" over gloo."""
+    ranks, every rank goes on the data axis. device="cuda" runs on the card
+    LOCAL_RANK, else the rank modulo the cards: over NCCL, one card per
+    process, or over gloo in a world the caller set up with gloo, which lets
+    several ranks share one card. device="cpu" runs over gloo."""
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to run the "
-                               "port on the CPU")
-        backend = "nccl"
-    elif device.type == "cpu":
-        backend = "gloo"
-    else:
-        raise ValueError(f"no mesh on {device}")
-    _init_world(backend)
+    _init_world(_backend(device))
     world = dist.get_world_size()
     ranks = list(range(world)) if devices is None else [int(r) for r in devices]
     n = len(ranks)

@@ -34,14 +34,24 @@ sample eps0, the reference image's noise augmentation, the dropout keep
 mask, the sigmas' normal draw, the latent noise). `noises` hands them over
 (the tests pass JAX's own); otherwise they come from `generator`.
 
-Data parallelism (`mesh`, parallel/mesh.py; the data axis only, as the JAX
-CLI trains): every rank runs its rows of the global batch, with its rows of
-the global batch's draws, so the step is the one-device step on the global
-batch. The gradients are mean-reduced over the data axis before anything
-else; every rank then holds the same gradients, masters and models. ZeRO-1
+The (data, frame) mesh (`mesh`, parallel/mesh.py; the JAX package's step
+takes any mesh, its CLI trains over data only, and so does the port's): every
+rank runs its rows of the global batch ("data") and its block of each
+clip's frames ("frame"; `shard_batch`), with its part of the global batch's
+draws: eps0 and the latent noise by rows and frames, the reference's noise,
+the dropout mask and the sigmas by rows. The per-clip conditioning (CLIP,
+the face tokens, the reference latent) is computed alike on every frame
+rank; the UNet's frame collectives (`parallel/sequence.py`) carry their
+cross-rank terms in the forward and, as their transposes, in the backward.
+Each rank's loss is the mean over its block; since the blocks are equal,
+the global loss is their mean over the mesh, and so is the gradient: the
+gradients and the loss are mean-reduced over (data, frame) before anything
+else, and every rank then holds the same gradients, masters and models, so
+the step is the one-device step on the global batch. ZeRO-1
 (`create_train_state(mesh=)`): AdamW keeps moments for, and updates, this
-rank's block of each master only (`parallel.shard_optimizer_state`); the
-blocks are then all-gathered into the full masters.
+rank's block of each master only, split over (data, frame)
+(`parallel.shard_optimizer_state`); the blocks are then all-gathered into
+the full masters.
 """
 
 from __future__ import annotations
@@ -60,20 +70,26 @@ from stableanimator_tpu_torch.diffusion.scheduler import (
     timestep_of_sigma,
 )
 from stableanimator_tpu_torch.models.clip import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from stableanimator_tpu_torch.ops.gate import use_mesh
 from stableanimator_tpu_torch.ops.resize import resize_antialias
 from stableanimator_tpu_torch.parallel.mesh import (
+    AXES,
     DATA_AXIS,
     FRAME_AXIS,
     all_reduce_mean,
     batch_sharding,
     gather_masters,
     shard_optimizer_state,
+    video_sharding,
     zero_sharding_for,
 )
 from stableanimator_tpu_torch.pipeline.animation import AnimationModels, _mark, cast_models
 
 DEFAULT_TRAINABLE = ("unet", "pose_net", "face_encoder")
 NOISE_KEYS = ("eps0", "ref_aug", "keep", "sigmas", "noise")
+# the batch's [B, F, ...] leaves, split over (data, frame) under a mesh; the
+# others are per clip, split over data
+VIDEO_KEYS = ("frames", "pose_pixels", "face_mask")
 
 
 def lr_at(cfg: TrainConfig, update: int) -> float:
@@ -103,13 +119,13 @@ class TrainState:
     updates: int = 0                 # optimizer updates applied (the schedule's count)
     mini_step: int = 0               # calls into the current accumulation window
     grad_acc: list[torch.Tensor] | None = None   # the window's running mean gradient
-    mesh: object = None              # ZeRO-1 over its data axis (the optimizer holds blocks)
+    mesh: object = None              # ZeRO-1 over (data, frame) (the optimizer holds blocks)
 
     def _zero(self):
         """Each master's ZeRO-1 sharding, or None without a mesh."""
         if self.mesh is None:
             return None
-        return [zero_sharding_for(m, self.mesh, DATA_AXIS) for m in self.masters]
+        return [zero_sharding_for(m, self.mesh, AXES) for m in self.masters]
 
     def master_state_dicts(self) -> dict[str, dict[str, torch.Tensor]]:
         """The fp32 masters as one state dict per trained model."""
@@ -161,7 +177,8 @@ def create_train_state(models: AnimationModels, cfg: TrainConfig,
     models in fp32 to keep a checkpoint's full precision), store the models
     in the compute dtype (bf16 for mixed_precision "bf16", else fp32), and
     set requires_grad on the trainable parameters only. mesh: ZeRO-1 over
-    its data axis (the optimizer over this rank's blocks of the masters)."""
+    its (data, frame) ranks (the optimizer over this rank's blocks of the
+    masters; with frame 1, the data axis's split)."""
     trainable = tuple(trainable_keys)
     unknown = set(trainable) - set(AnimationModels._fields)
     if unknown:
@@ -175,7 +192,7 @@ def create_train_state(models: AnimationModels, cfg: TrainConfig,
     for key in AnimationModels._fields:
         getattr(models, key).requires_grad_(key in trainable)
     params = [p for key in trainable for p in getattr(models, key).parameters()]
-    held = masters if mesh is None else shard_optimizer_state(masters, mesh, DATA_AXIS)
+    held = masters if mesh is None else shard_optimizer_state(masters, mesh, AXES)
     return TrainState(0, trainable, names, params, masters, make_optimizer(held, cfg), mesh=mesh)
 
 
@@ -200,11 +217,11 @@ def _encode_context(models: AnimationModels, ref_image, face_embedding):
 
 def draw_noises(batch: dict, latent_channels: int, conditioning_dropout_prob: float,
                 sched: SchedulerConfig, generator: torch.Generator | None,
-                batch_size: int | None = None) -> dict:
+                batch_size: int | None = None, num_frames: int | None = None) -> dict:
     """The step's five random draws (see the module docstring), for
-    `batch_size` clips (default the batch's)."""
+    `batch_size` clips of `num_frames` frames (default the batch's)."""
     b, f, hh, ww, _ = batch["frames"].shape
-    b = batch_size or b
+    b, f = batch_size or b, num_frames or f
     dev = batch["frames"].device
 
     def randn(*shape):
@@ -295,6 +312,23 @@ def train_loss(models: AnimationModels, batch: dict, cfg: TrainConfig, pipe: Pip
     return torch.mean(lam * w_face * torch.square(x0_hat - x0))
 
 
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's block of a global batch (or of its draws): the
+    `VIDEO_KEYS` leaves and the draws eps0 and noise by rows and frames
+    (eps0's [B*F, ...] as [B, F, ...]), the rest by rows."""
+    out = {}
+    for key, v in batch.items():
+        if key == "eps0":
+            n = batch["noise"].shape[1]
+            v = video_sharding(mesh, v.ndim + 1).local(v.reshape((-1, n) + v.shape[1:]))
+            out[key] = v.reshape((-1,) + v.shape[2:])
+        elif key in VIDEO_KEYS or key == "noise":
+            out[key] = video_sharding(mesh, v.ndim).local(v)
+        else:
+            out[key] = batch_sharding(mesh, v.ndim).local(v)
+    return out
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over all elements of all tensors (fp32)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
@@ -322,7 +356,7 @@ def _apply_update(state: TrainState, grads: list[torch.Tensor], cfg: TrainConfig
     for p in held:
         p.grad = None
     if state.mesh is not None:
-        gather_masters(state.masters, state.mesh, DATA_AXIS)
+        gather_masters(state.masters, state.mesh, AXES)
     state.updates += 1
     _copy_masters(state)
 
@@ -339,16 +373,13 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
     a mesh, accumulation, clipping, AdamW, the copy to the models); the
     device is synchronised at each boundary.
 
-    mesh: data parallelism over its data axis. `batch` is then this rank's
-    rows of the global batch (`parallel.batch_sharding(mesh).local`),
-    `noises` the global batch's draws (sliced here) and the generator draws
-    the global batch's; the metrics are the global batch's. The state must
-    come from `create_train_state(..., mesh=mesh)`."""
+    mesh: the (data, frame) mesh (module docstring). `batch` is then this
+    rank's block of the global batch (`shard_batch(batch, mesh)`: its rows,
+    and its block of each clip's frames), `noises` the global batch's draws
+    (this rank's part is taken here) and the generator draws the global
+    batch's; the metrics are the global batch's. The state must come from
+    `create_train_state(..., mesh=mesh)`."""
     k = cfg.gradient_accumulation_steps
-    if mesh is not None and mesh.shape[FRAME_AXIS] > 1:
-        raise NotImplementedError("training over the frame axis is not ported: ROADMAP "
-                                  "queue 1 item 11g")
-    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
 
     def step_fn(state: TrainState, batch: dict, *, noises: dict | None = None,
                 generator: torch.Generator | None = None, timings: dict | None = None):
@@ -358,14 +389,17 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
         t0 = _mark(timings, None, 0.0, device)
         if mesh is not None:
             if noises is None:
+                b, f = batch["frames"].shape[:2]
                 noises = draw_noises(batch, models.vae.config.latent_channels,
                                      conditioning_dropout_prob, SchedulerConfig(), generator,
-                                     batch_size=batch["frames"].shape[0] * n_data)
-            noises = {key: batch_sharding(mesh, v.ndim).local(v) for key, v in noises.items()}
-        loss = train_loss(models, batch, cfg, pipe,
-                          conditioning_dropout_prob=conditioning_dropout_prob,
-                          encode_chunk=encode_chunk, noises=noises, generator=generator,
-                          timings=timings)
+                                     batch_size=b * mesh.shape[DATA_AXIS],
+                                     num_frames=f * mesh.shape[FRAME_AXIS])
+            noises = shard_batch(noises, mesh)
+        with use_mesh(mesh):                       # the UNet's frame collectives
+            loss = train_loss(models, batch, cfg, pipe,
+                              conditioning_dropout_prob=conditioning_dropout_prob,
+                              encode_chunk=encode_chunk, noises=noises, generator=generator,
+                              timings=timings)
         loss.backward()
         t0 = _mark(timings, "forward_backward", t0, device)
         if timings is not None:     # the loss's own "encode" phase is not counted twice
@@ -376,7 +410,7 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
             p.grad = None
         loss = loss.detach()
         if mesh is not None:
-            all_reduce_mean(grads + [loss.reshape(1)], mesh, DATA_AXIS)
+            all_reduce_mean(grads + [loss.reshape(1)], mesh, AXES)
         grad_norm = global_norm(grads)
         if k > 1:
             if state.grad_acc is None:

@@ -19,6 +19,9 @@ from stableanimator_tpu_torch.cli import animate
 from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
 from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 from stableanimator_tpu_torch.utils import image, mp4
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 N_FRAMES = 6
 
@@ -42,10 +45,9 @@ def one_torch_thread():
     """One intra-op thread: the suite runs in several worker processes at
     once, and torch's thread pools then wait for each other on these small
     shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def _argv(root, *extra):

@@ -8,6 +8,9 @@ import shutil
 import pytest
 
 from stableanimator_tpu_torch.ops import build
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 KERNELS = ("flash_attention_fwd", "flash_attention_resident", "flash_attention_bwd")
 

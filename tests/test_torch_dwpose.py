@@ -47,6 +47,9 @@ from stableanimator_tpu_torch.preproc import (
 from chip_smoke import _keep_every_value
 from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
 from tests.test_preproc import _YoloxStandin
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
@@ -63,10 +66,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other on these small shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 class _SimccStandin(nn.Module):

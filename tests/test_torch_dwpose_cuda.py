@@ -18,6 +18,9 @@ import torch
 from stableanimator_tpu_torch.preproc import skeleton_render
 from stableanimator_tpu_torch.preproc.standins import write_dwpose
 from stableanimator_tpu_torch.preproc.wholebody import WholebodyDetector
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4

@@ -20,6 +20,9 @@ from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
 from stableanimator_tpu_torch.preproc.standins import export_onnx, seeded_iresnet, write_antelopev2
 from stableanimator_tpu_torch.tools import evaluate
 from tools import evaluate as jax_evaluate
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 # I3D features: the two executors sum in other orders (fp32), 1e-5 of the
 # largest feature. CSIM: both embed the same crops; keypoints that differ

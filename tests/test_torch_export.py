@@ -22,6 +22,9 @@ from stableanimator_tpu_torch.ops import attention
 from stableanimator_tpu_torch.ops import flash_attention as fa
 from stableanimator_tpu_torch.pipeline.animation import build_models
 from stableanimator_tpu_torch.tools import export_model as em
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 ATOL = 1e-5
 FLASH_OPS = ("stableanimator.flash_attention_fwd", "stableanimator.flash_attention_fwd_lse")
@@ -32,10 +35,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other; tracing and (de)serialising are host Python."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,9 @@ import torch
 from stableanimator_tpu_torch.ops import flash_attention as fa
 from stableanimator_tpu_torch.pipeline.animation import build_models
 from stableanimator_tpu_torch.tools import export_model as em
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 pytestmark = pytest.mark.cuda
 

@@ -17,6 +17,9 @@ import torch
 from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
 from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 from stableanimator_tpu_torch.tools import export_model as em
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 ATOL = 1e-5
 
@@ -26,10 +29,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other; tracing and (de)serialising are host Python."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def test_generate_export_roundtrip():

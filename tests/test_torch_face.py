@@ -29,6 +29,9 @@ from stableanimator_tpu_torch.preproc.standins import (
     seeded_iresnet,
     write_antelopev2,
 )
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 TOL = 1e-4
 
@@ -38,10 +41,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other on these small shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def test_geometry_copy_is_byte_equal_to_jax():

@@ -18,6 +18,9 @@ from stableanimator_tpu_torch.pipeline.animation import build_models
 from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, make_face_optimizer
 from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
 from stableanimator_tpu_torch.preproc.standins import export_onnx, seeded_iresnet
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 pytestmark = pytest.mark.cuda
 # fp32 on both sides: outputs and gradients within 1e-4 of their largest

@@ -35,6 +35,9 @@ from stableanimator_tpu_torch.pipeline import animation
 from stableanimator_tpu_torch.pipeline import face_opt as fo
 from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
 from stableanimator_tpu_torch.preproc.standins import export_onnx
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 TOL = 1e-5
 GEN_ATOL = 2e-3
@@ -45,10 +48,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other on these small shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def _arc_jax(pixels):

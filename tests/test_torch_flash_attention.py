@@ -18,6 +18,9 @@ import jax.numpy as jnp
 from stableanimator_tpu.ops.flash_attention import _flash_fwd_bshd
 from stableanimator_tpu.ops.flash_attention import flash_attention as jax_flash
 from stableanimator_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 # (q_len, kv_len, heads, head_dim): the ragged and multi-block cases of
 # tests/test_ops.py, the UNet's head counts, and the VAE's single 512-wide head

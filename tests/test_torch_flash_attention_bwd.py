@@ -20,6 +20,9 @@ import jax.numpy as jnp
 from stableanimator_tpu.ops.flash_attention import flash_attention as jax_flash
 from stableanimator_tpu_torch.ops import attention
 from stableanimator_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 # (q_len, kv_len, heads): the ragged and multi-block d = 64 cases of the
 # forward's test, at the UNet's head counts

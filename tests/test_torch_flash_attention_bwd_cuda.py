@@ -15,6 +15,9 @@ import torch
 
 from stableanimator_tpu_torch.ops import flash_attention as fa
 from stableanimator_tpu_torch.ops.attention import plain_attention
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 SHAPES = [((16, 4096, 5, 64), 4096, torch.bfloat16),
           ((16, 1024, 10, 64), 1024, torch.bfloat16),

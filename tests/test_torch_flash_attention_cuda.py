@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from stableanimator_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 # lse is fp32 in both; they differ by summation order only
 LSE_ATOL = 1e-3

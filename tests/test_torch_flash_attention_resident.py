@@ -23,6 +23,9 @@ import jax.numpy as jnp
 
 from stableanimator_tpu.ops import flash_attention as jfa
 from stableanimator_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 MIB4 = 4 * 1024 * 1024
 # (label, q shape, kv length): the 64-frame request's UNet levels 0 and 1

@@ -46,6 +46,9 @@ from stableanimator_tpu.pipeline import generate as jax_generate
 from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
 from stableanimator_tpu_torch.parallel.mesh import zero_sharding_for
 from tests.torch_mesh_worker import generate_on, micro_models, run_ranks
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 CFG = dict(tile_size=4, tile_overlap=1, num_inference_steps=2, decode_chunk_size=2)
 ATOL, MEAN_ATOL, UNET_REL = 1e-3, 1e-4, 1e-5

@@ -16,6 +16,9 @@ import torch
 from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
 from stableanimator_tpu_torch.ops import quant
 from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 pytestmark = pytest.mark.cuda
 

@@ -33,6 +33,9 @@ from stableanimator_tpu_torch.core.config import (
 )
 from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
 from stableanimator_tpu_torch.pipeline.animation import build_models
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 ATOL = RTOL = 2e-4
 

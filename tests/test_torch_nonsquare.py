@@ -55,6 +55,9 @@ from stableanimator_tpu_torch.train.train_step import (
     make_train_step,
     train_loss,
 )
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 TRAINABLE = ("unet", "pose_net", "face_encoder")
 CONVERT = {"unet": t2j.convert_unet, "pose_net": t2j.convert_pose_net,

@@ -23,6 +23,9 @@ from stableanimator_tpu.preproc.onnx_reader import load_onnx as jax_load_onnx
 from stableanimator_tpu_torch.preproc import onnx_to_torch as port_exec
 from stableanimator_tpu_torch.preproc.onnx_reader import Node, load_onnx
 from stableanimator_tpu_torch.preproc.standins import export_onnx
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 RTOL = ATOL = 1e-4
 
@@ -32,10 +35,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other on these small shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def _export(tmp_path, model, inputs, name="m.onnx"):

@@ -20,6 +20,9 @@ from stableanimator_tpu_torch.diffusion import scheduler, tiling
 from stableanimator_tpu_torch.ops.attention import dot_product_attention, plain_attention
 from stableanimator_tpu_torch.ops.norms import group_norm, layer_norm
 from stableanimator_tpu_torch.ops.resize import resize_antialias
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 
 def _rand(*shape, seed=0):

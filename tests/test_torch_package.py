@@ -9,10 +9,13 @@
       reference/diffusers names);
   (d) the full-size port models map through the JAX package's key rules
       onto the full-size Flax parameter trees, key for key and shape for
-      shape.
+      shape;
+  (e) the training step takes a mesh that splits frames, and no
+      NotImplementedError of the port points at a queue item.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -30,6 +33,9 @@ from stableanimator_tpu.pipeline import fast_init_params, init_params
 from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
 from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
 from stableanimator_tpu_torch.pipeline import animation
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = ("unet", "vae", "clip", "pose_net", "face_encoder")
@@ -191,6 +197,26 @@ def _paths(tree, prefix=()):
 def micro_params():
     jm = jax_build_models(**jax_micro_kwargs(), dtype=None, use_flash=False)
     return fast_init_params(jm, height=64, width=64)
+
+
+@pytest.mark.parametrize("data,frame", [(1, 2), (2, 2)])
+def test_make_train_step_takes_a_frame_mesh(data, frame):
+    """(e): building the step for a (data, frame) mesh with frame > 1 raises
+    nothing (tests/test_torch_train_frame.py runs it on gloo ranks)."""
+    from types import SimpleNamespace
+
+    from stableanimator_tpu_torch.core.config import TrainConfig
+    from stableanimator_tpu_torch.train.train_step import make_train_step
+
+    models = animation.build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu")
+    mesh = SimpleNamespace(shape={"data": data, "frame": frame})
+    assert callable(make_train_step(models, TrainConfig(), PipelineConfig(), mesh=mesh))
+    for root, _, files in os.walk(os.path.join(REPO, "stableanimator_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as fh:
+                    text = fh.read()
+                assert not re.search(r"NotImplementedError\([^)]*ROADMAP", text), name
 
 
 @pytest.mark.parametrize("model", MODELS)

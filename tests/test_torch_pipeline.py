@@ -33,6 +33,9 @@ from stableanimator_tpu.pipeline import generate as jax_generate
 from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
 from stableanimator_tpu_torch.core.config import PipelineConfig, micro_model_kwargs
 from stableanimator_tpu_torch.pipeline.animation import build_models, decode_frames, generate
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 ATOL = 2e-3
 

@@ -40,6 +40,9 @@ from stableanimator_tpu_torch.models.layers import QuantLinear
 from stableanimator_tpu_torch.models.unet import UNetSpatioTemporal
 from stableanimator_tpu_torch.ops import quant
 from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 
 def _rand(*shape, seed=0):

@@ -30,6 +30,9 @@ from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 from stableanimator_tpu_torch.preproc.face import FaceModel
 from stableanimator_tpu_torch.preproc.standins import seeded_iresnet, write_antelopev2
 from stableanimator_tpu_torch.utils.image import export_to_mp4, frames_to_uint8, pil_to_u8_array
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 
 @pytest.fixture(autouse=True)
@@ -37,10 +40,9 @@ def _one_torch_thread():
     """One intra-op thread per test: the suite runs in several worker
     processes at once, and torch's thread pools then spend their time
     waiting for each other on these small shapes."""
-    n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
+    torch.set_num_threads(THREADS)
 
 
 def _b64_png(arr):

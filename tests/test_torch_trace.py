@@ -14,6 +14,9 @@ import torch
 
 from stableanimator_tpu.core import trace as jax_trace
 from stableanimator_tpu_torch.core import trace
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 
 def test_dump_format(capsys):

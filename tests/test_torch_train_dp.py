@@ -50,19 +50,23 @@ from stableanimator_tpu.train.train_step import make_train_step as jax_make_trai
 from stableanimator_tpu_torch.convert.from_jax import state_dicts_from_jax
 from stableanimator_tpu_torch.core.checkpoint import CheckpointManager
 from tests.torch_mesh_worker import REPO, collect_ranks, micro_models, start_ranks, train_steps
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 B, F, HW, LR, DROPOUT = 2, 2, 128, 1e-4, 0.1
 
 
-def _jax_noises(key) -> dict:
-    """The five draws of the JAX train_loss for the step key `key`."""
+def _jax_noises(key, f: int = F) -> dict:
+    """The five draws of the JAX train_loss for the step key `key`, for B
+    clips of f frames."""
     k = jax.random.split(key, 5)
     h8 = HW // 8
-    draws = {"eps0": jax.random.normal(k[0], (B * F, h8, h8, 4), jnp.float32),
+    draws = {"eps0": jax.random.normal(k[0], (B * f, h8, h8, 4), jnp.float32),
              "ref_aug": jax.random.normal(k[1], (B, HW, HW, 3), jnp.float32),
              "keep": jax.random.bernoulli(k[2], 1.0 - DROPOUT, (B,)).astype(jnp.float32),
              "sigmas": jax_sigmas(k[3], (B,)),
-             "noise": jax.random.normal(k[4], (B, F, h8, h8, 4), jnp.float32)}
+             "noise": jax.random.normal(k[4], (B, f, h8, h8, 4), jnp.float32)}
     return {n: torch.from_numpy(np.array(v, np.float32)) for n, v in draws.items()}
 
 

@@ -27,6 +27,9 @@ from stableanimator_tpu.pipeline import fast_init_params
 from stableanimator_tpu_torch.convert.from_jax import state_dict_from_jax
 from stableanimator_tpu_torch.core.config import UNetConfig
 from stableanimator_tpu_torch.models.unet import UNetSpatioTemporal
+from tests.torch_threads import share_cores
+
+THREADS = share_cores()
 
 
 @pytest.fixture(scope="module")

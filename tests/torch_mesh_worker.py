@@ -62,13 +62,13 @@ def collect_ranks(started, timeout: float = 300.0) -> list:
             for r in range(len(procs))]
 
 
-def micro_models(state_dicts, quant: bool = False):
+def micro_models(state_dicts, quant: bool = False, remat: bool = False):
     """The micro model zoo, fp32 on the CPU, with the given weights."""
     from stableanimator_tpu_torch.core.config import micro_model_kwargs
     from stableanimator_tpu_torch.pipeline.animation import build_models
 
     models = build_models(**micro_model_kwargs(), dtype=torch.float32, device="cpu", seed=None,
-                          quant=quant)
+                          quant=quant, remat=remat)
     for name, sd in state_dicts.items():
         getattr(models, name).load_state_dict(sd, strict=True)
     return models
@@ -207,12 +207,15 @@ def mesh_suite(rank: int, world: int, inputs: dict) -> dict:
 
 
 def train_steps(models, inputs: dict, n_steps: int, mesh=None, state_dict=None):
-    """`n_steps` fp32 training steps on the global batch (this rank's rows
+    """`n_steps` fp32 training steps on the global batch (this rank's block
     under a mesh) with the given global draws, from `state_dict` when given.
     Returns (state, [(loss, grad_norm)] per step)."""
     from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
-    from stableanimator_tpu_torch.parallel import batch_sharding
-    from stableanimator_tpu_torch.train.train_step import create_train_state, make_train_step
+    from stableanimator_tpu_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+        shard_batch,
+    )
 
     cfg = TrainConfig(**inputs["cfg"])
     state = create_train_state(models, cfg, mesh=mesh)
@@ -222,12 +225,18 @@ def train_steps(models, inputs: dict, n_steps: int, mesh=None, state_dict=None):
                               mesh=mesh)
     batch = inputs["batch"]
     if mesh is not None:
-        batch = {k: batch_sharding(mesh, v.ndim).local(v) for k, v in batch.items()}
+        batch = shard_batch(batch, mesh)
     metrics = []
     for noises in inputs["noises"][state.step:state.step + n_steps]:
         state, m = step_fn(state, batch, noises=noises)
         metrics.append((m["loss"].item(), m["grad_norm"].item()))
     return state, metrics
+
+
+def _held(state) -> int:
+    """How many moment elements this rank's optimizer holds."""
+    return sum(v.numel() for st in state.optimizer.state.values()
+               for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
 
 
 def dp_step(rank: int, world: int, inputs: dict) -> dict:
@@ -237,9 +246,132 @@ def dp_step(rank: int, world: int, inputs: dict) -> dict:
 
     mesh = make_mesh(device="cpu")
     state, metrics = train_steps(micro_models(inputs["state_dicts"]), inputs, 2, mesh)
-    held = sum(v.numel() for st in state.optimizer.state.values()
-               for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
-    return {"metrics": metrics, "state_dict": state.state_dict(), "held": held}
+    return {"metrics": metrics, "state_dict": state.state_dict(), "held": _held(state)}
+
+
+def _grads_against_unsharded(mesh, sharded, unsharded, inputs, cotangents, params=()):
+    """Autograd through `sharded` (this rank's block of each input -> this
+    rank's output) against autograd through `unsharded` (the whole inputs
+    -> every rank's output, a list) on this process, each output seeded with
+    its cotangent. Returns [(got, want)] for this rank's block of each
+    input's gradient (`inputs`: (whole tensor, this rank's block of it as a
+    function)), and for each of `params` the gradient summed over the
+    ranks against the unsharded one."""
+    from stableanimator_tpu_torch.ops.gate import use_mesh
+    from stableanimator_tpu_torch.parallel.mesh import FRAME_AXIS
+
+    r = mesh.coordinate[FRAME_AXIS]
+    blocks = [mine(x).detach().clone().requires_grad_() for x, mine in inputs]
+    with use_mesh(mesh):
+        out = sharded(*blocks)
+    (out * cotangents[r]).sum().backward()
+    got = [b.grad for b in blocks]
+
+    def param_grads():           # (a parameter the function does not use has none)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone() for p in params]
+        for p in params:
+            p.grad = None
+        return grads
+
+    got_params = param_grads()
+    for g in got_params:
+        dist.all_reduce(g, group=mesh.group(FRAME_AXIS))
+    whole = [x.detach().clone().requires_grad_() for x, _ in inputs]
+    outs = unsharded(*whole)
+    sum((o * c).sum() for o, c in zip(outs, cotangents)).backward()
+    want = [mine(w.grad) for w, (_, mine) in zip(whole, inputs)]
+    return list(zip(got, want)) + list(zip(got_params, param_grads()))
+
+
+def _collective_grads(mesh) -> dict:
+    """Each frame collective's backward, and group_norm's over the frame
+    group, against autograd of the unsharded function; and a temporal
+    transformer's at 4x4 tokens (the all-to-all branch) and at 1x1 with one
+    clip (the gather_frames branch, the rows do not split)."""
+    import torch.nn.functional as F
+
+    from stableanimator_tpu_torch.models.transformer import TransformerSpatioTemporalModel
+    from stableanimator_tpu_torch.ops.norms import group_norm
+    from stableanimator_tpu_torch.parallel import sequence
+    from stableanimator_tpu_torch.parallel.mesh import FRAME_AXIS
+    from stableanimator_tpu_torch.pipeline.animation import fill_parameters
+
+    gen = torch.Generator().manual_seed(9)
+    n, r = mesh.shape[FRAME_AXIS], mesh.coordinate[FRAME_AXIS]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def block(axis, size):
+        return lambda t: t.narrow(axis, r * size, size)
+
+    out = {}
+    x = randn(2, 6, 3, 3, 4)
+    out["halo_exchange"] = _grads_against_unsharded(
+        mesh, lambda xb: sequence.halo_exchange(xb, 1, 1),
+        lambda xw: [F.pad(xw, (0, 0, 0, 0, 0, 0, 1, 1))[:, i * 3:i * 3 + 5] for i in range(n)],
+        [(x, block(1, 3))], randn(n, 2, 5, 3, 3, 4))
+    z = randn(6, 4, 2, 3)
+    out["frames_to_rows"] = _grads_against_unsharded(
+        mesh, sequence.frames_to_rows, lambda zw: [zw[i * 3:(i + 1) * 3] for i in range(n)],
+        [(z, block(1, 2))], randn(n, 3, 4, 2, 3))
+    out["rows_to_frames"] = _grads_against_unsharded(
+        mesh, sequence.rows_to_frames, lambda zw: [zw[:, i * 2:(i + 1) * 2] for i in range(n)],
+        [(z, block(0, 3))], randn(n, 6, 2, 2, 3))
+    out["gather_frames"] = _grads_against_unsharded(
+        mesh, lambda xb: sequence.gather_frames(xb, 1), lambda xw: [xw] * n,
+        [(x, block(1, 3))], randn(n, 2, 6, 3, 3, 4))
+    per_rank = randn(n, 2, 5, 8)
+    out["first_frame"] = _grads_against_unsharded(
+        mesh, sequence.first_frame, lambda pw: [pw[0]] * n,
+        [(per_rank, lambda t: t[r])], randn(n, 2, 5, 8))
+    y = randn(2, 6, 4, 4, 64) * 3 + 1
+    w = randn(64).requires_grad_()
+    b = randn(64).requires_grad_()
+    out["group_norm"] = _grads_against_unsharded(
+        mesh, lambda yb: group_norm(yb, w, b, 32, 1e-6, stats_group=sequence.frame_group()),
+        lambda yw: [group_norm(yw, w, b, 32, 1e-6)[:, i * 3:(i + 1) * 3] for i in range(n)],
+        [(y, block(1, 3))], randn(n, 2, 3, 4, 4, 64), params=(w, b))
+
+    model = TransformerSpatioTemporalModel(2, 16, 32, 48)
+    fill_parameters(model, 7)
+    f = 4
+    fl = f // n
+    for name, clips, side in (("transformer_all_to_all", 2, 4), ("transformer_gather", 1, 1)):
+        def mine(t, clips=clips):
+            t = t.reshape((clips, f) + t.shape[1:])[:, r * fl:(r + 1) * fl]
+            return t.reshape((-1,) + t.shape[2:])
+
+        def theirs(t, i, clips=clips):
+            t = t.reshape((clips, f) + t.shape[1:])[:, i * fl:(i + 1) * fl]
+            return t.reshape((-1,) + t.shape[2:])
+
+        x = randn(clips * f, side, side, 32)
+        ctx = randn(clips * f, 5, 48)
+        cot = randn(clips * f, side, side, 32)
+        out[name] = _grads_against_unsharded(
+            mesh, lambda xb, cb: model(xb, cb, num_frames=fl),
+            lambda xw, cw: [theirs(o, i) for o in [model(xw, cw, num_frames=f)]
+                            for i in range(n)],
+            [(x, mine), (ctx, mine)], torch.stack([theirs(cot, i) for i in range(n)]),
+            params=tuple(model.parameters()))
+    return out
+
+
+def frame_train(rank: int, world: int, inputs: dict) -> dict:
+    """Two ZeRO-1 steps of the remat micro models on a (world / 2) x 2
+    mesh, frames split in two (the backward's recomputation sees the
+    forward's mesh only through the checkpoint, since the step runs the
+    backward outside its `use_mesh`); on a 1 x 2 mesh first the
+    collectives' gradients (`_collective_grads`)."""
+    from stableanimator_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(world // 2, 2, device="cpu")
+    out = {"grads": _collective_grads(mesh)} if world == 2 else {}
+    state, metrics = train_steps(micro_models(inputs["state_dicts"], remat=True), inputs, 2,
+                                 mesh)
+    out.update(metrics=metrics, state_dict=state.state_dict(), held=_held(state))
+    return out
 
 
 def main(argv) -> int:
