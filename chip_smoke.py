@@ -118,12 +118,12 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            /healthz, two 512x512x16 requests (mp4, json; launches asserted),
            a 400 and a 413; the generate phase's models are freed first
   longvideo the inference CLI (`cli.animate.main`, in this process) at full
-           width on 64 seeded 512x512 pose PNGs, 25 steps, with the resident
-           budget at 4 MiB: 5 tiles in groups of 1 and 5-step segments; the
-           exit, the files written, 5 progress lines, the resident and
-           streamed launches (10 x 5 x steps and 4) and the 4 calls the
-           resident kernel refuses (the VAE's d = 512) are asserted; then
-           the same request at budget 0 and 10 steps (10 x 5 x 10 + 4
+           width on 64 seeded 512x512 pose PNGs, LONGVIDEO_STEPS (10) steps,
+           with the resident budget at 4 MiB: 5 tiles in groups of 1, two
+           5-step segments; the exit, the files written, 2 progress lines,
+           the resident and streamed launches (10 x 5 x 10 and 4) and the 4
+           calls the resident kernel refuses (the VAE's d = 512) are
+           asserted; then the same request at budget 0 (10 x 5 x 10 + 4
            streamed launches, none resident or refused), and the two
            routes' ratio of denoise seconds per step;
            then the driving request: the CLI at 512x512 x 16 frames with
@@ -142,6 +142,26 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            decode groups; 25 progress lines, 19 x 10 x steps + 29 streamed
            launches (by shape too), 450 PNGs, a GIF and an mp4, frames not
            constant; seconds and peak memory printed
+  ingest   the release-day path at full width: the reference's checkpoint
+           tree written from seeded models into a temporary directory
+           (Animation/*.pth by torch.save of the state dicts as the port
+           holds them; the SVD folders' vae and image_encoder as F16
+           safetensors; the antelopev2 and DWPose stand-ins at published
+           widths), its predicted bytes and the free disk space logged first
+           (too little fails); tools/ingest_checkpoints.main on it with
+           --validate_image on the card (a frame of the dwpose phase's noise
+           clip on which the DWPose stand-ins find one person): seconds by
+           stage, host peak RSS, the report (ok for all five files) and the
+           validation's CSIM (a finite cosine); the ingested directory
+           loaded by load_state_dicts into build_models(seed=None) as the
+           CLIs do, timed, host peak RSS, every parameter bit-equal to the
+           written tensor loaded directly; an INGEST_STEPS-step request on
+           each model set: frames equal (bound 0), 10 x 5 + 1 forward
+           launches each; then tools/eval_drill.py on the card at its
+           defaults (full width, 64x64, 16 frames, 2 steps), its JSON
+           printed, and its CSIM, PSNR / L1 and I3D features against the
+           CPU on the same frames (DRILL_CSIM_ATOL, equal, DRILL_I3D_REL);
+           the files are deleted at the end
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
            one warm-up step and three timed steps through make_train_step;
@@ -151,9 +171,10 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            as MixedResolutionSampler alternates buckets: 30 forward, 15 + 15
            backward launches a step, peak memory printed; then the training CLI at the
            micro scale for 2 steps on a PNG dataset, and a resume
-  profile  one more request and one more training step under
-           torch.profiler: device time by kernel category, the busiest
-           kernels, and the device's busy share
+  profile  one more request (PROFILE_STEPS steps) and one more training
+           step under torch.profiler: device time by kernel category, the
+           busiest kernels, the device's busy share, and the seconds the
+           profiler takes to hand over its events
   parallel the (data, frame) mesh on torch.distributed over NCCL in a world of
            one process (`make_mesh()`; the machine has one card): NCCL's
            all_reduce, all_gather and all_to_all_single on the mesh's groups;
@@ -190,7 +211,7 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
 The phases run in the order face, dwpose, generate (with its profile, the
 A/B, pro, faceopt, export, parallel and quant, which need the generate
 phase's models), serve, longvideo (with the driving request), longvideo450,
-train.
+ingest, train.
 Each phase logs its seconds ("[chip_smoke] <phase>: N s"). Before the last
 line it prints one JSON object with the kernels' numbers; the last line is
 {"ok": true, "device": {...}}.
@@ -396,7 +417,8 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # column slices: 2 x 2 + 4
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 8, DQ512_KERNEL: 4}
 ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "pro",
-              "faceopt", "export", "parallel", "quant", "serve", "longvideo", "train", "profile")
+              "faceopt", "export", "parallel", "quant", "serve", "longvideo", "ingest", "train",
+              "profile")
 # phases run only when --phases names them (each takes minutes of its own)
 EXTRA_PHASES = ("longvideo450",)
 # the parallel phase: the world-of-one mesh request runs the plain request's
@@ -495,15 +517,39 @@ PRO_HW, PRO_UNET_ATTENTIONS, PRO_DECODE_CALLS, PRO_WARMUP_STEPS = (576, 1024), 1
 # segment over 38 a step), 28 decode groups of 16 frames and one of 2
 LONG_PLANS = {64: (5, 5, 5, 4), 450: (38, 19, 1, 29)}
 LONGVIDEO_FRAMES, LONG450_FRAMES = 64, 450
-# the 64-frame request at budget 0 runs LONGVIDEO_STREAMED_STEPS Euler steps
-# (the one at 4 MiB runs --steps): the routes are compared per denoise step
-LONGVIDEO_STREAMED_STEPS = 10
+# both 64-frame requests (budget 4 MiB and 0) run LONGVIDEO_STEPS Euler steps
+# (at most --steps), two 5-step segments, so the segmented loop continues
+# from a later step: the routes are compared per denoise step, and the
+# default run's time goes to the ingest phase
+LONGVIDEO_STEPS = 10
 # the quant phase's warm-up request and its profiled request run
 # QUANT_SHORT_STEPS Euler steps; its timed request runs --steps
 QUANT_SHORT_STEPS = 5
+# the profile phase's request runs PROFILE_STEPS Euler steps (at most
+# --steps), as the quant phase's profiled request does: the profiler's
+# hand-over of its events grows with them (≈ 5 s a step on the H100's host),
+# and the default run's time goes to the ingest phase
+PROFILE_STEPS = 5
 # the A/B's four flat requests run AB_STEPS Euler steps: enough for the
 # routes' ratio, and the run's time goes to the parallel phase's ranks
 AB_STEPS = 5
+# the ingest phase: its requests on the ingested and the directly loaded
+# full-width models run INGEST_STEPS Euler steps (10 x steps + 1 forward
+# launches each); the host must hold the release tree and its ingested copy
+# with INGEST_DISK_MARGIN bytes to spare. The evaluation drill on the card
+# against the CPU on the same frames: CSIM (mean and least) within
+# DRILL_CSIM_ATOL (tests/test_torch_evaluate.py's CSIM_ATOL: a keypoint
+# that moves by ~4e-5 can move a crop pixel by one level), PSNR / L1 equal
+# (numpy on the same PNGs), and the I3D stand-in's features (fp32 Conv3d,
+# TF32 off) within DRILL_I3D_REL of the largest |feature| (summation order)
+INGEST_STEPS, INGEST_DISK_MARGIN = 5, 2 * 10**9
+# the validation image: frame INGEST_IMAGE of the dwpose phase's seeded
+# noise clip, the first on which the full-width DWPose stand-ins find one
+# person (boxes per frame 3, 4, 2, 3, 2, 3, 3, 1, ... in the dwpose phase),
+# so the skeleton alignment has a body to fit (with none it raises, as the
+# reference's does); the generate inputs' reference finds several
+INGEST_IMAGE = 7
+DRILL_CSIM_ATOL, DRILL_I3D_REL = 1e-3, 1e-4
 # the face phase: the ONNX executor on an iresnet100 stand-in (glintr100's
 # architecture) at batch 16 against the torch module. In fp64 on both sides
 # the output and the input gradient must agree within 1e-9 of their largest
@@ -1339,13 +1385,13 @@ def _longvideo_request(steps: int, budget: int, n_frames: int = LONGVIDEO_FRAMES
 
 
 def phase_longvideo(steps: int):
-    """The 64-frame CLI request on the resident route (budget 4 MiB) at
-    `steps`, then on the streamed route (budget 0) at
-    LONGVIDEO_STREAMED_STEPS; the routes compared by denoise seconds per
-    step. Returns the first, with the second under "streamed"."""
-    resident = _longvideo_request(steps, RESIDENT_BUDGET)
+    """The 64-frame CLI request on the resident route (budget 4 MiB), then on
+    the streamed route (budget 0), each at LONGVIDEO_STEPS (at most
+    `steps`); the routes compared by denoise seconds per step. Returns the
+    first, with the second under "streamed"."""
+    resident = _longvideo_request(min(steps, LONGVIDEO_STEPS), RESIDENT_BUDGET)
     torch.cuda.empty_cache()
-    streamed = _longvideo_request(min(steps, LONGVIDEO_STREAMED_STEPS), 0)
+    streamed = _longvideo_request(min(steps, LONGVIDEO_STEPS), 0)
     per_step = {name: r["phases"]["denoise"] / r["steps"]
                 for name, r in (("resident", resident), ("streamed", streamed))}
     log(f"[longvideo] 64-frame request, denoise seconds per step: resident route (budget "
@@ -2310,10 +2356,12 @@ def _profile(label: str, fn):
     # same time again as their "self device time"
     rows = [(ev.self_device_time_total / 1e6, ev.count, ev.key) for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    handover = time.perf_counter() - t0 - wall
     busy = sum(r[0] for r in rows)
     log(f"[profile] {label} under the profiler: wall {wall:.3f} s, device kernel time "
         f"{busy:.3f} s, busy share {busy / wall if wall else 0:.3f}, idle share "
-        f"{1 - busy / wall if wall else 0:.3f}")
+        f"{1 - busy / wall if wall else 0:.3f}; the profiler's hand-over of its events "
+        f"{handover:.1f} s")
     if not rows:
         log("[profile] the profiler saw no device time")
         return
@@ -2330,6 +2378,8 @@ def _profile(label: str, fn):
 def profile_generate(models, cfg, ref, pose, face):
     from stableanimator_tpu_torch.pipeline.animation import generate
 
+    cfg = dataclasses.replace(cfg, num_inference_steps=min(PROFILE_STEPS,
+                                                           cfg.num_inference_steps))
     _profile(f"one {cfg.num_inference_steps}-step request",
              lambda: generate(models, ref, pose, face, cfg, device="cuda"))
 
@@ -2923,15 +2973,276 @@ def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) ->
     return out
 
 
+# ---------------------------------------------------------------------------
+# ingest: the release-day path at full width
+# ---------------------------------------------------------------------------
+
+class _HostPeak(_DevicePeak):
+    """This process's most host memory (VmRSS of /proc/self/status; the
+    card's machine refuses the reset of VmHWM through /proc/self/clear_refs),
+    sampled every 20 ms on a thread while the block runs."""
+
+    @staticmethod
+    def _used() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def note(self) -> str:
+        import resource
+
+        return (f"host peak RSS {self.peak / 2**30:.2f} GiB ({self.before / 2**30:.2f} before; "
+                "VmRSS sampled every 20 ms), resource.getrusage ru_maxrss over the process's "
+                f"life {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def _write_release(root: str, models, antelopev2: str, dwpose: str) -> dict:
+    """The reference's checkpoint tree under `root` from `models` (seeded):
+    Animation/{unet,pose_net,face_encoder}.pth (torch.save of the state
+    dicts as the port holds them), the SVD folders' vae and image_encoder
+    in F16 safetensors (`write_safetensors`), and copies of the antelopev2
+    and DWPose stand-ins. Checks the disk first: the tree and the tool's
+    output must fit with INGEST_DISK_MARGIN to spare. Returns the state
+    dicts as written (CPU tensors; numpy fp16 for the safetensors files)."""
+    from stableanimator_tpu_torch.convert.safetensors_io import write_safetensors
+    from stableanimator_tpu_torch.tools.ingest_checkpoints import SVD_ROOT
+
+    onnx = _tree_bytes(antelopev2) + _tree_bytes(dwpose)
+    sizes = {name: sum(p.numel() * p.element_size() for p in getattr(models, name).parameters())
+             for name in ("unet", "pose_net", "face_encoder")}
+    numels = {name: sum(p.numel() for p in getattr(models, name).parameters())
+              for name in ("unet", "vae", "clip", "pose_net", "face_encoder")}
+    # the tree: .pth as held, F16 safetensors; the output: .pth's floats as
+    # fp32 .npz, the F16 files as fp16 .npz; the ONNX files twice
+    tree = sum(sizes.values()) + 2 * (numels["vae"] + numels["clip"]) + onnx
+    out = 4 * sum(numels[n] for n in sizes) + 2 * (numels["vae"] + numels["clip"]) + onnx
+    free = shutil.disk_usage(root).free
+    log(f"[ingest] release tree at {root}: {tree / 1e9:.3f} GB predicted (the three .pth "
+        f"{sum(sizes.values()) / 1e9:.3f}, the F16 safetensors "
+        f"{2 * (numels['vae'] + numels['clip']) / 1e9:.3f}, ONNX {onnx / 1e9:.3f}), the tool's "
+        f"output {out / 1e9:.3f} GB; free disk there {free / 1e9:.3f} GB")
+    if free < tree + out + INGEST_DISK_MARGIN:
+        raise SystemExit(f"the host cannot hold the release tree ({tree} B) and its ingested "
+                         f"copy ({out} B) with {INGEST_DISK_MARGIN} B to spare: {free} B free "
+                         f"at {root}")
+    written = {}
+    os.makedirs(os.path.join(root, "Animation"))
+    for name in sizes:
+        sd = {k: v.detach().cpu() for k, v in getattr(models, name).state_dict().items()}
+        torch.save(sd, os.path.join(root, "Animation", f"{name}.pth"))
+        written[name] = sd
+    for name, rel in (("vae", f"{SVD_ROOT}/vae/diffusion_pytorch_model.fp16.safetensors"),
+                      ("clip", f"{SVD_ROOT}/image_encoder/model.fp16.safetensors")):
+        sd = {k: v.detach().to(torch.float16).cpu().numpy()
+              for k, v in getattr(models, name).state_dict().items()}
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        write_safetensors(os.path.join(root, rel), sd, {"format": "pt"})
+        written[name] = sd
+    shutil.copytree(antelopev2, os.path.join(root, "antelopev2"))
+    shutil.copytree(dwpose, os.path.join(root, "DWPose"))
+    log(f"[ingest] wrote the tree: {_tree_bytes(root)} B ("
+        + ", ".join(f"{os.path.relpath(os.path.join(d, f), root)} "
+                    f"{os.path.getsize(os.path.join(d, f))}"
+                    for d, _, fs in sorted(os.walk(root)) for f in sorted(fs)) + ")")
+    return written
+
+
+def _same_parameters(loaded, direct) -> tuple[int, list]:
+    """(parameters compared, those not bit-equal) of two AnimationModels."""
+    n, differ = 0, []
+    for name in loaded._fields:
+        want = getattr(direct, name).state_dict()
+        for k, v in getattr(loaded, name).state_dict().items():
+            n += 1
+            if not (v.dtype == want[k].dtype and torch.equal(v, want[k])):
+                differ.append(f"{name}.{k}")
+    return n, differ
+
+
+def _drill_check(work: str, metrics: dict) -> dict:
+    """The drill's CSIM, PSNR / L1 and I3D features on the card against the
+    same on the CPU, from the drill's own files in `work`."""
+    import numpy as np
+    from PIL import Image
+
+    from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
+    from stableanimator_tpu_torch.tools import eval_drill, evaluate
+
+    frames_a, frames_b = (evaluate.load_frames(os.path.join(work, f"out_{t}", "animated_images"))
+                          for t in ("a", "b"))
+    ref = np.asarray(Image.open(os.path.join(work, "reference.png")).convert("RGB"))
+    cpu = evaluate.csim(frames_a, ref, os.path.join(work, "antelopev2"), device="cpu")
+    cpu.update(evaluate.reconstruction(frames_a, frames_b))
+    clip_len = eval_drill.fvd_clip_len(len(frames_a))
+    clips = evaluate._windows(frames_a, clip_len) + evaluate._windows(frames_b, clip_len)
+    i3d = os.path.join(work, "i3d.onnx")
+    feats = {d: evaluate._i3d_features(clips, load_onnx_function(i3d, device=d))
+             for d in ("cuda", "cpu")}
+    i3d_err = float(np.abs(feats["cuda"] - feats["cpu"]).max() / np.abs(feats["cpu"]).max())
+    csim_err = max(abs(metrics[k] - cpu[k]) for k in ("csim_mean", "csim_min"))
+    log(f"[ingest] drill, the card against the CPU on the same frames: csim_mean "
+        f"{metrics['csim_mean']:.6f} / {cpu['csim_mean']:.6f}, csim_min {metrics['csim_min']:.6f}"
+        f" / {cpu['csim_min']:.6f} (max diff {csim_err:.3e}, bound {DRILL_CSIM_ATOL}); l1 "
+        f"{metrics['l1_mean']} / {cpu['l1_mean']}, psnr {metrics['psnr_mean']} / "
+        f"{cpu['psnr_mean']}; I3D features {feats['cpu'].shape} max diff {i3d_err:.3e} of the "
+        f"largest |feature| {np.abs(feats['cpu']).max():.4f} (bound {DRILL_I3D_REL})")
+    checks = {
+        "CSIM within DRILL_CSIM_ATOL of the CPU's": csim_err <= DRILL_CSIM_ATOL,
+        "faces found as on the CPU": metrics["frames_with_face"] == cpu["frames_with_face"],
+        "PSNR / L1 equal to the CPU's": all(metrics[k] == cpu[k]
+                                            for k in ("l1_mean", "psnr_mean", "num_frames")),
+        "I3D features within DRILL_I3D_REL of the CPU's": i3d_err <= DRILL_I3D_REL,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the evaluation drill on the card disagrees with the CPU: {failed}")
+    return dict(csim_err=csim_err, i3d_err=i3d_err)
+
+
+def phase_ingest(standins: str, dwpose: str | None) -> dict:
+    """The release-day path: the reference's checkpoint tree written from
+    seeded full-width models, `tools/ingest_checkpoints.main` on it (dump,
+    check, copy, and the validation render on the card), the CLIs' load of
+    the ingested directory timed and held bit for bit against the written
+    tensors, a 5-step request on the ingested models against one on the
+    directly loaded ones, then the evaluation drill on the card against the
+    CPU. Returns the request's launches and the numbers read."""
+    import numpy as np
+    from PIL import Image
+
+    from stableanimator_tpu_torch.convert.checkpoints import load_state_dicts
+    from stableanimator_tpu_torch.core.config import PipelineConfig
+    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
+    from stableanimator_tpu_torch.pipeline.animation import build_models, generate
+    from stableanimator_tpu_torch.preproc import standins as standin_files
+    from stableanimator_tpu_torch.tools import eval_drill, ingest_checkpoints
+
+    kwargs = dict(dtype=torch.bfloat16, device="cuda")
+    antelopev2 = os.path.join(standins, "antelopev2")
+    if not os.path.exists(os.path.join(antelopev2, "glintr100.onnx")):
+        standin_files.write_antelopev2(antelopev2)
+    if dwpose is None:
+        dwpose = standin_files.write_dwpose(os.path.join(standins, "DWPose"))
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_release_")
+    try:
+        src, ckpt = os.path.join(tmp, "checkpoints"), os.path.join(tmp, "ckpt")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        seeded = build_models(**kwargs, seed=0)
+        written = _write_release(src, seeded, antelopev2, dwpose)
+        id_dim = seeded.face_encoder.config.id_embeddings_dim
+        del seeded
+        out["write_s"] = time.perf_counter() - t0
+        out["tree_bytes"] = _tree_bytes(src)
+        cfg = PipelineConfig(num_inference_steps=INGEST_STEPS)
+        ref, pose, face, _ = _inputs(cfg.height, cfg.width, cfg.num_frames, id_dim, "cuda")
+        ref_png = os.path.join(tmp, "validate.png")
+        Image.fromarray(_noise_frames(INGEST_IMAGE + 1, cfg.height, seed=1)[INGEST_IMAGE]
+                        ).save(ref_png)
+        log(f"[ingest] wrote the release tree in {out['write_s']:.1f} s")
+
+        # the tool, with its validation render on the card
+        stages: dict = {}
+        t0 = time.perf_counter()
+        with _HostPeak() as host:
+            report = ingest_checkpoints.main(["--source", src, "--output", ckpt,
+                                              "--validate_image", ref_png, "--device", "cuda"],
+                                             timings=stages)
+        out["ingest_s"], out["ingest_host_gib"] = time.perf_counter() - t0, host.peak / 2**30
+        out["ingest_stages"], out["report"] = stages, report
+        out["ckpt_bytes"] = _tree_bytes(ckpt)
+        csim = report.get("csim") or {}
+        log(f"[ingest] tools/ingest_checkpoints: {out['ingest_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items())
+            + f"); output {out['ckpt_bytes']} B; {host.note()}; report {json.dumps(report)}")
+        oks = [npz for _, npz, _ in ingest_checkpoints.PLAN
+               if str(report.get(npz, "")).startswith("ok:")]
+        if len(oks) != len(ingest_checkpoints.PLAN):
+            raise SystemExit(f"the ingest report lacks ok for {sorted(set(report) - set(oks))}")
+        mean = csim.get("csim_mean")
+        if not (mean is not None and np.isfinite(mean) and -1.0 <= mean <= 1.0):
+            raise SystemExit(f"the validation's CSIM is not a finite cosine: {csim}")
+
+        # the CLIs' load (cli/animate.py's `_prepare`), timed, beside the
+        # written tensors loaded directly
+        t0 = time.perf_counter()
+        with _HostPeak() as host:
+            loaded = build_models(**kwargs, seed=None)
+            names = load_state_dicts(ckpt, loaded, allow_random_init=False,
+                                     init_id_adapter=False)
+            torch.cuda.synchronize()
+        out["load_s"], out["load_host_gib"] = time.perf_counter() - t0, host.peak / 2**30
+        log(f"[ingest] load_state_dicts of {names} into build_models(seed=None) on the card: "
+            f"{out['load_s']:.2f} s; {host.note()}")
+        direct = build_models(**kwargs, seed=None)
+        for name, sd in written.items():
+            getattr(direct, name).load_state_dict(
+                {k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+        del written
+        n, differ = _same_parameters(loaded, direct)
+        log(f"[ingest] {n} parameters compared with the written tensors cast to each "
+            f"parameter's dtype: {len(differ)} differ {differ[:10]}")
+        if differ or n == 0:
+            raise SystemExit(f"ingested parameters differ from the written ones: {differ[:10]}")
+
+        # a request on each: the same frames, through the forward kernels
+        expected = 10 * INGEST_STEPS + 1
+        frames = {}
+        for tag, models in (("ingested", loaded), ("direct", direct)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            frames[tag] = generate(models, ref, pose, face, cfg, device="cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = _launch_counts()
+            log(f"[ingest] {INGEST_STEPS}-step request on the {tag} models: {sec:.2f} s, flash "
+                f"launches {counts['by_kernel'][FWD_KERNEL]} (expected {expected})")
+            if counts["by_kernel"][FWD_KERNEL] != expected:
+                raise SystemExit(f"the {tag} request launched the forward kernel "
+                                 f"{counts['by_kernel'][FWD_KERNEL]} times, expected {expected}")
+            out.setdefault("requests", {})[tag] = dict(seconds=sec, **counts)
+        diff = (frames["ingested"].float() - frames["direct"].float()).abs().max().item()
+        log(f"[ingest] frames on the ingested models against the directly loaded ones: max "
+            f"|diff| {diff} (bound 0), shape {tuple(frames['direct'].shape)}")
+        if diff != 0 or not bool(torch.isfinite(frames["direct"]).all()):
+            raise SystemExit(f"the ingested models' frames differ by {diff}")
+        del loaded, direct, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the evaluation drill on the card, against the CPU on its frames
+    work = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee()):
+            drill = eval_drill.main(["--device", "cuda", "--work_dir", work])
+        out["drill_s"] = time.perf_counter() - t0
+        log(f"[ingest] eval drill on the card: {out['drill_s']:.1f} s; " + json.dumps(drill))
+        out["drill"] = dict(drill, **_drill_check(work, drill["metrics"]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None,
-                    parallel=None, quant=None, pro=None) -> list:
+                    parallel=None, quant=None, pro=None, ingest=None) -> list:
     """The JSON line's entries: each kernel's times at its shapes, weighted
     by the launches the main paths made at those shapes (generate's timed
     request, the timed 576x1024 request, the timed face-opt request, the
     mesh request and the mesh training step, the timed quant request, the
     server's first request, the 64-frame CLI request, one timed training
     step at 512x512 and one on the vertical bucket, and the timed face-opt
-    request at crop 32, and the first frame-sharded step on both ranks)."""
+    request at crop 32, the first frame-sharded step on both ranks, and the
+    ingest phase's request on the ingested models)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
@@ -2954,6 +3265,8 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
         paths["serve"] = served["requests"][0]["by_shape"]
     if longvideo:
         paths["longvideo"] = longvideo["by_shape"]
+    if ingest:
+        paths["ingest"] = ingest["requests"]["ingested"]["by_shape"]
     if train:
         paths["train"] = train["steps"][-1]["by_shape"]
         paths["train_vertical"] = train["vertical"]["steps"][-1]["by_shape"]
@@ -3000,7 +3313,8 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
                               "step, of the timed quant request, of the server's first "
                               "request, of the 64-frame CLI request, of one timed "
                               "training step at 512x512 and one on the vertical bucket, "
-                              "and of the first frame-sharded step on both ranks",
+                              "of the first frame-sharded step on both ranks, and of the "
+                              "ingest phase's request on the ingested models",
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -3065,7 +3379,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
     if "build" in phases:
         phase_build()
         took("build")
-    gen = longvideo = train = face = faceopt = served = parallel = quant = pro = None
+    gen = longvideo = train = face = faceopt = served = parallel = quant = pro = ingest = None
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
         took("kernels")
@@ -3123,6 +3437,10 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         phase_longvideo450(steps)
         torch.cuda.empty_cache()
         took("longvideo450")
+    if "ingest" in phases:
+        ingest = phase_ingest(standins, dwpose)
+        torch.cuda.empty_cache()
+        took("ingest")
     if "train" in phases:
         train, (state, step_fn, batch, generator) = phase_train()
         if "profile" in phases:
@@ -3134,7 +3452,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         took("train")
     if "kernels" in phases:
         log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
-                                                   served, parallel, quant, pro)}))
+                                                   served, parallel, quant, pro, ingest)}))
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -276,13 +276,19 @@ def _prepare(args, device, ref_pil, num_frames: int, load_poses):
     if args.model_scale == "micro":
         # the .npz checkpoints are full-size; micro is for smoke runs
         model_kwargs.update(micro_model_kwargs(), dtype=torch.float32)
+    t0 = time.time()
     models = build_models(**model_kwargs)
-    load_state_dicts(args.checkpoint_dir, models, args.allow_random_init,
-                     init_id_adapter=args.init_id_adapter)
+    loaded = load_state_dicts(args.checkpoint_dir, models, args.allow_random_init,
+                              init_id_adapter=args.init_id_adapter)
+    print(f"models built and {len(loaded)} checkpoint(s) loaded ({', '.join(loaded) or 'none'}) "
+          f"in {time.time() - t0:.1f}s")
 
+    # a clip shorter than a tile is one tile; its overlap stays below the
+    # tile, as the server clamps it (else `tile_indices` gets no window)
+    tile = min(args.tile_size, num_frames)
     cfg = PipelineConfig(
         height=args.height, width=args.width, num_frames=num_frames,
-        tile_size=args.tile_size, tile_overlap=args.frames_overlap,
+        tile_size=tile, tile_overlap=min(args.frames_overlap, max(tile - 1, 1)),
         num_inference_steps=args.num_inference_steps,
         min_guidance_scale=args.guidance_scale, max_guidance_scale=args.guidance_scale,
         fps=args.fps, motion_bucket_id=args.motion_bucket_id,

@@ -136,6 +136,24 @@ def fill_parameters(module: nn.Module, seed: int) -> None:
                 p.uniform_(-lim, lim, generator=gen)
 
 
+def meta_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None = None,
+                clip_cfg: CLIPVisionConfig | None = None,
+                pose_cfg: PoseNetConfig | None = None,
+                face_cfg: FaceEncoderConfig | None = None,
+                remat: bool = False, quant: bool = False) -> AnimationModels:
+    """The five models on the meta device: every parameter's name and
+    shape, and no storage (`build_models` gives them a device; a checkpoint
+    check reads their state dicts)."""
+    with torch.device("meta"):
+        return AnimationModels(
+            unet=UNetSpatioTemporal(unet_cfg or UNetConfig(), remat=remat, quant=quant),
+            vae=AutoencoderKLTemporalDecoder(vae_cfg or VAEConfig()),
+            clip=CLIPVisionModelWithProjection(clip_cfg or CLIPVisionConfig()),
+            pose_net=PoseNet(pose_cfg or PoseNetConfig()),
+            face_encoder=FusionFaceId(face_cfg or FaceEncoderConfig()),
+        )
+
+
 def build_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None = None,
                  clip_cfg: CLIPVisionConfig | None = None,
                  pose_cfg: PoseNetConfig | None = None,
@@ -150,14 +168,8 @@ def build_models(unet_cfg: UNetConfig | None = None, vae_cfg: VAEConfig | None =
     (`cast_models`). `remat` turns on the UNet's gradient checkpointing,
     `quant` its int8 path (same parameters)."""
     device = resolve_device(device)
-    with torch.device("meta"):
-        models = AnimationModels(
-            unet=UNetSpatioTemporal(unet_cfg or UNetConfig(), remat=remat, quant=quant),
-            vae=AutoencoderKLTemporalDecoder(vae_cfg or VAEConfig()),
-            clip=CLIPVisionModelWithProjection(clip_cfg or CLIPVisionConfig()),
-            pose_net=PoseNet(pose_cfg or PoseNetConfig()),
-            face_encoder=FusionFaceId(face_cfg or FaceEncoderConfig()),
-        )
+    models = meta_models(unet_cfg, vae_cfg, clip_cfg, pose_cfg, face_cfg, remat=remat,
+                         quant=quant)
     for i, m in enumerate(models):
         m.to_empty(device=device)
         if seed is not None:

@@ -38,6 +38,8 @@ import time
 
 import numpy as np
 
+from stableanimator_tpu_torch import ROOT, subprocess_env
+
 
 def _reply(stdout, **fields):
     print(json.dumps({"ok": True, **fields}), file=stdout, flush=True)
@@ -115,12 +117,10 @@ class PoseWorker:
                  device: str = "cuda", max_det: int | None = None):
         self._own_dir = workdir is None
         self._dir = workdir or tempfile.mkdtemp(prefix="pose_worker_")
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
         self._proc = subprocess.Popen(
             [sys.executable, "-u", "-m", "stableanimator_tpu_torch.preproc.pose_worker"],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=env, cwd=root)
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=subprocess_env(),
+            cwd=ROOT)
         self.last_ack: dict = {}
         self._send({"op": "init", "det": det_path, "pose": pose_path, "device": str(device),
                     "letterbox": list(letterbox) if letterbox else None, "max_det": max_det})

@@ -20,6 +20,10 @@ at hand.
     108 -> 256 linear, a gated attention unit with s 128 and expansion 2,
     SimCC split ratio 2), [N,3,384,288] -> [N,133,576], [N,133,768].
 
+  * `I3DStandin` is the I3D-shaped Conv3d network of the evaluation drill
+    (the root tools/eval_drill.py's stand-in): [1, 3, T, H, W] clips to
+    [1, 16] features, for FVD smoke runs while no I3D export is at hand.
+
 `export_onnx` writes a module with torch's legacy (TorchScript) exporter,
 which needs the `onnx` package only to inject onnxscript functions that
 these modules never use; the injection is skipped for the call.
@@ -186,6 +190,25 @@ def write_antelopev2(directory: str, recogniser: nn.Module | None = None, seed: 
                 (torch.zeros(1, 3, 112, 112),), os.path.join(directory, "glintr100.onnx"),
                 constant_folding=False)
     return directory
+
+
+class I3DStandin(nn.Module):
+    """An I3D-shaped network for FVD: a 7x7x7 Conv3d (3 -> 8 channels, padding
+    3) at `stride`, ReLU, an average pool of window `pool` at stride 2, a
+    1x1x1 Conv3d to 16 channels and the mean over time and space. The
+    defaults are the evaluation drill's; tests/test_misc.py::TestFVD's
+    stand-in is stride (2, 4, 4), pool (2, 8, 8)."""
+
+    def __init__(self, stride=(2, 8, 8), pool=(2, 4, 4)):
+        super().__init__()
+        self.conv = nn.Conv3d(3, 8, (7, 7, 7), stride=stride, padding=3)
+        self.head = nn.Conv3d(8, 16, 1)
+        self.pool = tuple(pool)
+
+    def forward(self, x):
+        h = torch.relu(self.conv(x))
+        h = F.avg_pool3d(h, self.pool, stride=2)
+        return self.head(h).mean(dim=(2, 3, 4))
 
 
 # --- DWPose: YOLOX-L and RTMPose-l -----------------------------------------

@@ -12,10 +12,11 @@ clips, the I3D graph run by the port's ONNX executor
 (`preproc/onnx_to_torch.py`) on --device. The I3D file is an external
 artifact (--fvd_i3d: any I3D .onnx, e.g. the rgb Kinetics-400 export);
 clips shorter than the window are rejected, longer ones are split into
-non-overlapping windows. The frames are resized to 224 x 224 by the port's
-copy of OpenCV's INTER_LINEAR resize (`preproc/geometry.py::resize_bilinear`,
-byte-identical to cv2.resize, which the JAX tool calls), so no OpenCV is
-needed.
+non-overlapping windows, of which each side needs two (the JAX tool takes
+one, whose covariance is undefined). The frames are resized to 224 x 224
+by the port's copy of OpenCV's INTER_LINEAR resize
+(`preproc/geometry.py::resize_bilinear`, byte-identical to cv2.resize,
+which the JAX tool calls), so no OpenCV is needed.
 
     python -m stableanimator_tpu_torch.tools.evaluate --frames_dir out/animated_images \\
         --reference reference.png --antelopev2 checkpoints/antelopev2 [--device cuda]
@@ -125,6 +126,12 @@ def fvd(gen_frames, real_frames, i3d_onnx_path: str, clip_len: int = 16, device=
     if not gen_clips or not real_clips:
         raise ValueError(f"need at least {clip_len} frames per side for FVD "
                          f"(got {len(gen_frames)} gen / {len(real_frames)} real)")
+    if len(gen_clips) < 2 or len(real_clips) < 2:
+        # one clip's features have no covariance: np.cov gives NaN (numpy >=
+        # 2.2; older numpy took the row for one variable's observations)
+        raise ValueError(f"FVD needs at least 2 clips of {clip_len} frames per side (got "
+                         f"{len(gen_clips)} gen / {len(real_clips)} real): the covariance "
+                         "of one clip is undefined")
     fn = load_onnx_function(i3d_onnx_path, device=device)
     return {
         "fvd": frechet_distance(_i3d_features(gen_clips, fn), _i3d_features(real_clips, fn)),

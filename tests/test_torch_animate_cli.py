@@ -85,6 +85,22 @@ def test_cli_writes_the_outputs_of_a_direct_generate(inputs, capsys):
     np.testing.assert_array_equal(got, want)
 
 
+def test_cli_takes_a_clip_no_longer_than_the_overlap(inputs):
+    # 2 frames at the CLI's default tile 16 / overlap 4: one 2-frame tile
+    # with its overlap clamped below the tile, as cli/serve.py clamps it (the
+    # JAX CLI ends in an IndexError from tile_indices here)
+    for name in sorted(os.listdir(inputs / "poses"))[2:]:
+        os.remove(inputs / "poses" / name)
+    argv = _argv(inputs)
+    for flag in ("--tile_size", "--frames_overlap"):
+        i = argv.index(flag)
+        del argv[i:i + 2]
+    info = animate.main(argv)
+    assert info["num_frames"] == 2
+    assert sorted(os.listdir(inputs / "out" / "animated_images")) == ["frame_0.png",
+                                                                      "frame_1.png"]
+
+
 # face optimisation (ROADMAP item 9), the antelopev2 face model (11b) and
 # --driving_video_folder (11c) are ported: each case now runs
 @pytest.mark.parametrize("case,match", [("driving", None),

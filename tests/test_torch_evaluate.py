@@ -12,12 +12,16 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.nn as nn
 from PIL import Image
 
 from stableanimator_tpu_torch.preproc.geometry import resize_bilinear
 from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
-from stableanimator_tpu_torch.preproc.standins import export_onnx, seeded_iresnet, write_antelopev2
+from stableanimator_tpu_torch.preproc.standins import (
+    I3DStandin,
+    export_onnx,
+    seeded_iresnet,
+    write_antelopev2,
+)
 from stableanimator_tpu_torch.tools import evaluate
 from tools import evaluate as jax_evaluate
 from tests.torch_threads import share_cores
@@ -29,20 +33,6 @@ THREADS = share_cores()
 # by ~4e-5 can move a crop pixel by one level, which moves a stand-in's
 # embedding by ~2e-4 (tests/test_torch_face.py), so 1e-3 on a cosine.
 I3D_REL, CSIM_ATOL = 1e-5, 1e-3
-
-
-class I3DStandin(nn.Module):
-    """tests/test_misc.py::TestFVD's stand-in: [1, 3, T, H, W] -> [1, 16]."""
-
-    def __init__(self):
-        super().__init__()
-        self.conv = nn.Conv3d(3, 8, (7, 7, 7), stride=(2, 4, 4), padding=3)
-        self.head = nn.Conv3d(8, 16, 1)
-
-    def forward(self, x):
-        h = torch.relu(self.conv(x))
-        h = torch.nn.functional.avg_pool3d(h, (2, 8, 8), stride=2)
-        return self.head(h).mean(dim=(2, 3, 4))
 
 
 def _frames(n, hw, seed):
@@ -57,6 +47,7 @@ def test_frechet_distance_matches_jax():
     for x, y in ((a, a), (a, b), (b, a[:40])):
         assert evaluate.frechet_distance(x, y) == jax_evaluate.frechet_distance(x, y)
     assert abs(evaluate.frechet_distance(a, a)) < 1e-6 and evaluate.frechet_distance(a, b) > 4.0
+
 
 
 def test_reconstruction_and_windows_match_jax():
@@ -83,7 +74,9 @@ def test_i3d_features_and_fvd_match_jax(tmp_path):
     from stableanimator_tpu.preproc.onnx_to_jax import load_onnx_function as jax_load
 
     torch.manual_seed(0)
-    path = export_onnx(I3DStandin().eval(), (torch.zeros(1, 3, 4, 32, 32),),
+    # tests/test_misc.py::TestFVD's stand-in
+    path = export_onnx(I3DStandin(stride=(2, 4, 4), pool=(2, 8, 8)).eval(),
+                       (torch.zeros(1, 3, 4, 32, 32),),
                        str(tmp_path / "i3d.onnx"))
     gen, real = _frames(8, 32, seed=3), _frames(8, 32, seed=4)
     clips = evaluate._windows(gen, 4)
@@ -122,3 +115,17 @@ def test_csim_and_main_match_jax(tmp_path):
     assert result["num_frames"] == 2 and result["frames_with_face"] == 2
     assert abs(result["csim_mean"] - want["csim_mean"]) <= CSIM_ATOL
     assert result == {**result, **jax_evaluate.reconstruction(frames, frames[::-1])}
+
+
+def test_fvd_refuses_one_clip_a_side(tmp_path):
+    # the JAX tool takes one clip a side; the covariance of its one
+    # observation is then numpy's to decide (the row's variance as one
+    # variable before numpy 2.2, NaN since, on which scipy's sqrtm raises)
+    torch.manual_seed(0)
+    path = export_onnx(I3DStandin(stride=(2, 4, 4), pool=(2, 8, 8)).eval(),
+                       (torch.zeros(1, 3, 4, 32, 32),), str(tmp_path / "i3d.onnx"))
+    gen, real = _frames(4, 32, seed=3), _frames(7, 32, seed=4)
+    with pytest.raises(ValueError, match=r"FVD needs at least 2 clips of 4 frames per side "
+                                         r"\(got 1 gen / 1 real\)"):
+        evaluate.fvd(gen, real, path, clip_len=4, device="cpu")
+    assert evaluate.fvd(gen + gen, real + real, path, clip_len=4, device="cpu")["fvd_gen_clips"] == 2

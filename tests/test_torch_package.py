@@ -1,7 +1,7 @@
 """Guards of the PyTorch port (`stableanimator_tpu_torch`):
 
-  (a) the port and chip_smoke.py load no jax, flax, optax, orbax, cv2 or
-      JAX-package module;
+  (a) the port and chip_smoke.py load no jax, flax, optax, orbax, cv2,
+      safetensors or JAX-package module;
   (b) its entry points default to CUDA and raise without it, unless the
       caller asks for the CPU;
   (c) the JAX package's converters, applied to the port's state dicts,
@@ -55,7 +55,7 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                            "stableanimator_tpu", "cv2"))
+                                            "stableanimator_tpu", "cv2", "safetensors"))
         print(len(names), bad)
         assert len(names) >= 20, names
         for mod in ("preproc.onnx_reader", "preproc.onnx_to_torch", "preproc.geometry",
@@ -66,7 +66,9 @@ def test_port_imports_no_jax():
                     "preproc.legacy_detectors", "cli.extract_skeleton",
                     "cli.extract_training_skeletons", "ops.gate", "ops.quant",
                     "parallel.mesh", "parallel.sequence", "core.trace",
-                    "tools.export_model", "tools.evaluate"):
+                    "tools.export_model", "tools.evaluate", "convert.safetensors_io",
+                    "tools.dump_torch_checkpoint", "tools.ingest_checkpoints",
+                    "tools.eval_drill"):
             assert "stableanimator_tpu_torch." + mod in names, mod
         assert not bad, bad
     """)
@@ -178,7 +180,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         export_model.main(["--what", "vae_encode", "--output", "none.pt2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate.csim([], np.zeros((8, 8, 3), np.uint8), "none")
-    frames = [np.zeros((8, 8, 3), np.uint8)] * 16
+    frames = [np.zeros((8, 8, 3), np.uint8)] * 32      # two 16-frame clips a side
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate.fvd(frames, frames, "none.onnx")
 
