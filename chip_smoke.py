@@ -40,8 +40,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            kv 1024; the forward and backward also at the 576x1024 paths'
            shapes (UNet levels 0, 1, 2 at 9216, 2304 and 576 tokens, batch 32
            for the request, 16 with lse and backward for the vertical
-           training step; the VAE's mid attention at [4, 9216, 1, 512]),
-           where the plain versions run over chunks of the batch (their fp32
+           training step; the VAE's mid attention at [4, 9216, 1, 512]) and
+           the 450-frame request's UNet levels 0 and 1 at batch 64, where
+           the plain versions run over chunks of the batch (their fp32
            scores would not fit the card whole) and the whole output is
            compared; then every kernel
            timed with CUDA events at the paths' shapes beside its bound, its
@@ -109,21 +110,26 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            with --face_optimize_steps 1 and the stand-in antelopev2 files
   export   the generate phase's full-width UNet through
            tools/export_model.py (torch.export) at the flat request's call:
-           the kernel's custom op in the graph (10 nodes), the program saved
-           and loaded back in memory launching the kernel (5 + 5 at UNet
-           levels 0 and 1) and within kernel_tolerance of the eager module;
-           export, save and load seconds, ms per call of both
+           the kernel's custom op in the graph (10 nodes), the exported
+           program's module launching the kernel (5 + 5 at UNet levels 0 and
+           1) and within kernel_tolerance of the eager module; export
+           seconds, ms per call of both; then the deployment path at a small
+           scale (the save and load of the full-width program took ≈ 40 s):
+           the micro UNet with one 64-wide head a level exported at 2 x 2
+           frames of 256x256, saved and loaded back, its reloaded module
+           launching the kernel as the eager one does and within
+           kernel_tolerance of it
   serve    cli.serve's AnimationService at full width with the stand-in
            antelopev2 files, behind make_handler on 127.0.0.1 in a thread:
            /healthz, two 512x512x16 requests (mp4, json; launches asserted),
            a 400 and a 413; the generate phase's models are freed first
   longvideo the inference CLI (`cli.animate.main`, in this process) at full
-           width on 64 seeded 512x512 pose PNGs, LONGVIDEO_STEPS (10) steps,
+           width on 64 seeded 512x512 pose PNGs, LONGVIDEO_STEPS (6) steps,
            with the resident budget at 4 MiB: 5 tiles in groups of 1, two
-           5-step segments; the exit, the files written, 2 progress lines,
-           the resident and streamed launches (10 x 5 x 10 and 4) and the 4
-           calls the resident kernel refuses (the VAE's d = 512) are
-           asserted; then the same request at budget 0 (10 x 5 x 10 + 4
+           segments of 5 and 1 steps; the exit, the files written, 2
+           progress lines, the resident and streamed launches (10 x 5 x 6
+           and 4) and the 4 calls the resident kernel refuses (the VAE's
+           d = 512) are asserted; then the same request at budget 0 (10 x 5 x 6 + 4
            streamed launches, none resident or refused), and the two
            routes' ratio of denoise seconds per step;
            then the driving request: the CLI at 512x512 x 16 frames with
@@ -164,17 +170,18 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the files are deleted at the end
   train    full-width training (remat, bf16 over fp32 masters, trainable
            unet, pose_net, face_encoder) on a seeded 1x16x512x512 batch:
-           one warm-up step and three timed steps through make_train_step;
+           one warm-up step and TRAIN_TIMED_STEPS (2) timed steps through
+           make_train_step;
            loss / grad_norm finite, the fp32 masters moved, and the launches
            of every kernel per step asserted; then the same on the vertical
            bucket (1x16 frames of height 1024 x width 576) on the same state,
            as MixedResolutionSampler alternates buckets: 30 forward, 15 + 15
            backward launches a step, peak memory printed; then the training CLI at the
            micro scale for 2 steps on a PNG dataset, and a resume
-  profile  one more request (PROFILE_STEPS steps) and one more training
-           step under torch.profiler: device time by kernel category, the
-           busiest kernels, the device's busy share, and the seconds the
-           profiler takes to hand over its events
+  profile  one more request (PROFILE_STEPS steps) under torch.profiler:
+           device time by kernel category, the busiest kernels, the device's
+           busy share, and the seconds the profiler takes to hand over its
+           events
   parallel the (data, frame) mesh on torch.distributed over NCCL in a world of
            one process (`make_mesh()`; the machine has one card): NCCL's
            all_reduce, all_gather and all_to_all_single on the mesh's groups;
@@ -193,9 +200,9 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            all_to_all_single, broadcast, all_reduce; any refusal fails),
            then two fp32 micro steps against the same in one CPU process
            (SMALL_ATOL on loss and grad_norm, the micro train check's rule
-           on the masters), then FRAME_STEPS full-width steps (TrainConfig
+           on the masters), then FRAME_STEPS (1) full-width step (TrainConfig
            defaults, the one-device steps' batch and seed, ZeRO-1 over data
-           x frame) whose first loss and grad_norm must lie within
+           x frame) whose loss and grad_norm must lie within
            FRAME_LOSS_RTOL / FRAME_GRAD_RTOL of the one-device step's; each
            rank prints its seconds, peak memory and launches (asserted
            20 / 10 / 10); then the training CLI runs under torchrun (one
@@ -206,8 +213,7 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            CPU; the full-width request built with quant=True from the same
            seed, a 5-step warm-up and the timed request (251 launches at 25
            steps), frames finite in [0, 1], their difference from the bf16
-           request's printed; with profile, one 5-step quant request under
-           the profiler
+           request's printed
 The phases run in the order face, dwpose, generate (with its profile, the
 A/B, pro, faceopt, export, parallel and quant, which need the generate
 phase's models), serve, longvideo (with the driving request), longvideo450,
@@ -269,7 +275,8 @@ RESIDENT_BUDGET = 4 * 1024 * 1024
 # hold 9216, 2304 and 576 tokens (level 2 passes the 512-key cut there), and
 # the pro request's sequential decode runs the VAE's mid attention on 4
 # frames at a time; the frame-sharded training step (1 x 2 mesh) runs levels
-# 0 and 1 on each rank's 8 frames
+# 0 and 1 on each rank's 8 frames; the 450-frame request (38 tiles, two a
+# UNet call) runs levels 0 and 1 at batch 64, 2375 launches each
 PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("unet_level1", (32, 1024, 10, 64), False),
                ("vae_mid", (16, 4096, 1, 512), False),
@@ -284,7 +291,9 @@ PATH_SHAPES = (("unet_level0", (32, 4096, 5, 64), False),
                ("vtrain_level1", (16, 2304, 10, 64), True),
                ("vtrain_level2", (16, 576, 20, 64), True),
                ("frame_train_level0", (8, 4096, 5, 64), True),
-               ("frame_train_level1", (8, 1024, 10, 64), True))
+               ("frame_train_level1", (8, 1024, 10, 64), True),
+               ("long450_level0", (64, 4096, 5, 64), False),
+               ("long450_level1", (64, 1024, 10, 64), False))
 # the backward kernels' shapes on the training path (d = 64; at 512x512, on
 # the vertical bucket and on a rank of the frame-sharded step) and on the face optimisation's refines (d = 512:
 # the VAE decoder's mid attention over a 16-frame crop of 24 and of 32
@@ -444,8 +453,12 @@ PARALLEL_FRAMES_ATOL, PARALLEL_SPREAD_FLOOR = 0.0, 1e-6
 # FRAME_GRAD_RTOL. The micro fp32 step on the card (TF32 off) against one CPU
 # process: SMALL_ATOL relative on loss and grad_norm, and _small_train's rule
 # on the masters. FRAME_STEPS full-width steps: the first (update 0, at lr
-# 0) is compared, the second is warm
-FRAME_RANKS, FRAME_LOSS_RTOL, FRAME_GRAD_RTOL, FRAME_STEPS = 2, 1e-3, 1e-2, 2
+# 0) is compared; one step, its seconds cold (a second, warm step added ≈ 25 s
+# of host-staged gloo to the default run). So the update at lr > 0 across the
+# frame mesh is the micro steps' to show: their masters must move by more
+# than lr / 2 on at least FRAME_MOVED_SHARE of the elements (0.725 did)
+FRAME_RANKS, FRAME_LOSS_RTOL, FRAME_GRAD_RTOL, FRAME_STEPS = 2, 1e-3, 1e-2, 1
+FRAME_MOVED_SHARE = 0.5
 # seconds the full-width ranks may take, start to exit
 FRAME_TIMEOUT = 600
 # the frame-sharded step's peak device memory per rank, predicted before the
@@ -494,7 +507,9 @@ SMALL_TRAIN_RTOL, SMALL_TRAIN_LR = 1e-4, 1e-4
 # the plain path)
 TRAIN_LAUNCHES = {FWD_KERNEL: 20, RES_KERNEL: 0, DKV_KERNEL: 10, DQ_KERNEL: 10,
                   DKV512_KERNEL: 0, DQ512_KERNEL: 0}
-TRAIN_TIMED_STEPS = 3
+# (2 timed steps: the step is host-bound and its time is read in alternating
+# runs of one call, not from this mean)
+TRAIN_TIMED_STEPS = 2
 # the vertical bucket (cli/train.py's AnimationDataset(..., 576, 1024):
 # width 576, height 1024; latent 128x72), stepped on the 512x512 steps'
 # state: UNet level 2 (576 tokens) joins the kernel, so 15 attentions run
@@ -518,15 +533,15 @@ PRO_HW, PRO_UNET_ATTENTIONS, PRO_DECODE_CALLS, PRO_WARMUP_STEPS = (576, 1024), 1
 LONG_PLANS = {64: (5, 5, 5, 4), 450: (38, 19, 1, 29)}
 LONGVIDEO_FRAMES, LONG450_FRAMES = 64, 450
 # both 64-frame requests (budget 4 MiB and 0) run LONGVIDEO_STEPS Euler steps
-# (at most --steps), two 5-step segments, so the segmented loop continues
-# from a later step: the routes are compared per denoise step, and the
-# default run's time goes to the ingest phase
-LONGVIDEO_STEPS = 10
-# the quant phase's warm-up request and its profiled request run
-# QUANT_SHORT_STEPS Euler steps; its timed request runs --steps
+# (at most --steps), two segments of 5 and 1 steps, so the segmented loop
+# continues from a later step: the routes are compared per denoise step, and
+# the default run's time goes to the ingest phase and the kernels' rows
+LONGVIDEO_STEPS = 6
+# the quant phase's warm-up request runs QUANT_SHORT_STEPS Euler steps; its
+# timed request runs --steps
 QUANT_SHORT_STEPS = 5
 # the profile phase's request runs PROFILE_STEPS Euler steps (at most
-# --steps), as the quant phase's profiled request does: the profiler's
+# --steps): the profiler's
 # hand-over of its events grows with them (≈ 5 s a step on the H100's host),
 # and the default run's time goes to the ingest phase
 PROFILE_STEPS = 5
@@ -1988,12 +2003,11 @@ def phase_export(models, cfg) -> dict:
     """The generate phase's full-width bf16 UNet through
     `tools/export_model.py::export_unet` at the flat request's call (the
     CFG pair of 16 frames at 512x512): the graph holds the kernel's custom
-    op; the program, saved and loaded back (in memory), launches the kernel
-    at both UNet levels and matches the eager module within
-    `kernel_tolerance`. Export, save and load seconds, and the two modules'
-    times per call."""
-    import io
-
+    op; the exported program's module launches the kernel at both UNet
+    levels and matches the eager module within `kernel_tolerance`. Export
+    seconds, and the two modules' times per call. Then the tool's deployment
+    path, a program saved and loaded back, at a small scale
+    (`_export_roundtrip`)."""
     from stableanimator_tpu_torch.ops import flash_attention as fa
     from stableanimator_tpu_torch.tools import export_model as em
 
@@ -2005,44 +2019,90 @@ def phase_export(models, cfg) -> dict:
     ops = collections.Counter(str(n.target) for n in program.graph.nodes
                               if n.op == "call_function" and
                               str(n.target).startswith("stableanimator."))
-    t0 = time.perf_counter()
-    buf = io.BytesIO()
-    torch.export.save(program, buf)
-    t_save, size = time.perf_counter() - t0, buf.getbuffer().nbytes
+    exported = program.module()
     del program
-    buf.seek(0)
-    t0 = time.perf_counter()
-    reloaded = torch.export.load(buf).module()
-    t_load = time.perf_counter() - t0
-    del buf
     args = em.unet_inputs(unet, b, f, h8, w8, "cuda", seed=1)
     with torch.no_grad():
         fa.reset_launch_counts()
-        got = reloaded(*args)
+        got = exported(*args)
         torch.cuda.synchronize()
         by_shape = dict(fa.flash_attention.launches_by_shape)
         want = unet(*args)
         share = ((got.float() - want.float()).abs() / fa.kernel_tolerance(want)).max().item()
         ms = {"eager": cuda_ms(lambda: unet(*args), iters=3, warmup=1),
-              "exported": cuda_ms(lambda: reloaded(*args), iters=3, warmup=1)}
+              "exported": cuda_ms(lambda: exported(*args), iters=3, warmup=1)}
     expected = {(b * f, h8 * w8, h8 * w8, 5, 64): 5, (b * f, h8 * w8 // 4, h8 * w8 // 4, 10, 64): 5}
-    log(f"[export] full-width UNet at [{b}, {f}, {h8}, {w8}, 8]: export {t_export:.1f} s, save "
-        f"{t_save:.1f} s ({size / 1e9:.2f} GB), load {t_load:.1f} s; custom-op nodes "
-        f"{dict(ops)}; the reloaded program's flash launches {by_shape} (expected {expected}); "
-        f"output {tuple(got.shape)} {str(got.dtype)[6:]}, max |reloaded - eager| "
+    log(f"[export] full-width UNet at [{b}, {f}, {h8}, {w8}, 8]: export {t_export:.1f} s; "
+        f"custom-op nodes {dict(ops)}; the exported program's flash launches {by_shape} "
+        f"(expected {expected}); output {tuple(got.shape)} {str(got.dtype)[6:]}, max "
+        f"|exported - eager| "
         f"{(got.float() - want.float()).abs().max().item():.3e}, {share:.3f} of "
         f"kernel_tolerance; ms per call eager {ms['eager']:.1f}, exported {ms['exported']:.1f}")
     checks = {"the custom op in the graph": ops.get("stableanimator.flash_attention_fwd.default", 0)
               == 10,
-              "kernel launches from the reloaded program": by_shape == expected,
+              "kernel launches from the exported program": by_shape == expected,
               "output within kernel_tolerance of the eager module": share <= 1.0}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"the exported UNet failed its checks: {failed}")
-    del reloaded
+    del exported
     torch.cuda.empty_cache()
-    return dict(export_s=t_export, save_s=t_save, load_s=t_load, bytes=size, ms=ms,
-                max_share=share)
+    return dict(export_s=t_export, ms=ms, max_share=share, roundtrip=_export_roundtrip())
+
+
+def _export_roundtrip() -> dict:
+    """`tools/export_model.py`'s deployment path on the card, at a small
+    scale: the micro UNet with one 64-wide head a level (the kernel's d),
+    bf16, exported at the CFG pair of 2 frames of 256x256 (level 0: 1024
+    tokens, the kernel's route), saved with torch.export.save and loaded
+    back from the bytes; the reloaded module launches the kernel as the
+    eager module does (the custom op deserialised) and matches it within
+    `kernel_tolerance`."""
+    from stableanimator_tpu_torch.core.config import micro_model_kwargs
+    from stableanimator_tpu_torch.ops import flash_attention as fa
+    from stableanimator_tpu_torch.pipeline.animation import build_models
+    from stableanimator_tpu_torch.tools import export_model as em
+
+    kw = micro_model_kwargs()
+    kw["unet_cfg"] = dataclasses.replace(kw["unet_cfg"], block_out_channels=(64,) * 4,
+                                         num_attention_heads=(1,) * 4)
+    unet = build_models(**kw, dtype=torch.bfloat16, device="cuda", seed=0).unet
+    b, f, h8, w8 = 2, 2, 32, 32
+    sec = [time.perf_counter()]
+    program = em.export_unet(unet, b, f, h8, w8)
+    sec.append(time.perf_counter())
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    size = buf.getbuffer().nbytes
+    sec.append(time.perf_counter())
+    buf.seek(0)
+    reloaded = torch.export.load(buf).module()
+    sec.append(time.perf_counter())
+    export_s, save_s, load_s = (t1 - t0 for t0, t1 in zip(sec, sec[1:]))
+    args = em.unet_inputs(unet, b, f, h8, w8, "cuda", seed=1)
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        want = unet(*args)
+        torch.cuda.synchronize()
+        eager = dict(fa.flash_attention.launches_by_shape)
+        fa.reset_launch_counts()
+        got = reloaded(*args)
+        torch.cuda.synchronize()
+        by_shape = dict(fa.flash_attention.launches_by_shape)
+    share = ((got.float() - want.float()).abs() / fa.kernel_tolerance(want)).max().item()
+    log(f"[export] micro UNet (one 64-wide head a level) at [{b}, {f}, {h8}, {w8}, 8]: export "
+        f"{export_s:.1f} s, save {save_s:.1f} s ({size / 1e6:.1f} MB), load {load_s:.1f} s; the "
+        f"reloaded program's flash launches {by_shape} (the eager module's {eager}); max "
+        f"|reloaded - eager| "
+        f"{(got.float() - want.float()).abs().max().item():.3e}, {share:.3f} of "
+        "kernel_tolerance")
+    checks = {"kernel launches from the reloaded program": bool(by_shape) and by_shape == eager,
+              "output within kernel_tolerance of the eager module": share <= 1.0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"the saved and reloaded UNet failed its checks: {failed}")
+    return dict(export_s=export_s, save_s=save_s, load_s=load_s, bytes=size,
+                launches=by_shape, max_share=share)
 
 
 def _cli_faceopt(root: str) -> dict:
@@ -2276,8 +2336,7 @@ def phase_train():
     vbatch = _train_batch(1, cfg.sample_n_frames, *VERTICAL_HW, id_dim, "cuda", seed=1)
     out["vertical"] = _train_steps(state, step_fn, vbatch, generator, "vertical ",
                                    VTRAIN_LAUNCHES)
-    del vbatch
-    return out, (state, step_fn, batch, generator)
+    return out
 
 
 def _write_dataset(root: str, n_frames: int, hw: int) -> str:
@@ -2744,14 +2803,18 @@ def _frame_micro_check(tmp: str):
         decided = (upd_cpu.abs() > SMALL_TRAIN_LR / 2) & (upd.abs() > SMALL_TRAIN_LR / 2)
         err_decided = diff[decided].abs().max().item()
         rms_share = (diff.square().mean().sqrt() / upd_cpu.square().mean().sqrt()).item()
-        ok = rel <= SMALL_ATOL and err_decided <= 1e-6 and rms_share <= 1e-2
+        moved = (upd.abs() > SMALL_TRAIN_LR / 2).float().mean().item()
+        ok = (rel <= SMALL_ATOL and err_decided <= 1e-6 and rms_share <= 1e-2
+              and moved >= FRAME_MOVED_SHARE)
         log(f"[parallel] micro fp32 128x128x4 frames, 2 steps on a 1 x {FRAME_RANKS} frame mesh "
             f"of gloo ranks on the card, rank {r} vs one CPU process: loss/grad_norm "
             + "; ".join(f"cpu {a[0]:.6f}/{a[1]:.5f} card {b[0]:.6f}/{b[1]:.5f}"
                         for a, b in zip(m_cpu, got["metrics"]))
             + f", max rel {rel:.2e} (tol {SMALL_ATOL}); masters: max|diff| {err_decided:.2e} "
             f"on the {int(decided.sum())} of {diff.numel()} elements whose update exceeded "
-            f"lr/2 (tol 1e-6), rms(diff)/rms(update) {rms_share:.2e} (tol 1e-2) -> "
+            f"lr/2 (tol 1e-6), rms(diff)/rms(update) {rms_share:.2e} (tol 1e-2); the card's "
+            f"masters moved by more than lr/2 on {moved:.3f} of them (at least "
+            f"{FRAME_MOVED_SHARE}) -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("the micro frame-sharded step on the card disagrees with the CPU")
@@ -2913,14 +2976,13 @@ def _small_quant():
         raise SystemExit("the micro quant generate on the card disagrees with the CPU")
 
 
-def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) -> dict:
+def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames) -> dict:
     """The int8 path (W8A8, build_models(quant=True)): int8_dense on the
     card, a micro quant generate card vs CPU, then the full-width request
     built with quant=True from the generate phase's seed (a
     QUANT_SHORT_STEPS-step warm-up, then the timed request at the generate
     phase's steps), its launches, frames and, for the timed one, their
-    difference from the bf16 request's; one QUANT_SHORT_STEPS-step quant
-    request under the profiler."""
+    difference from the bf16 request's."""
     from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 
@@ -2964,9 +3026,6 @@ def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames, profile: bool) ->
             raise SystemExit(f"the quant request launched {counts['by_kernel']}")
         if not finite or lo < 0.0 or hi > 1.0:
             raise SystemExit("quant request frames not finite or outside [0, 1]")
-    if profile:
-        _profile(f"one {short.num_inference_steps}-step quant request",
-                 lambda: generate(models, ref, pose, face, short, device="cuda"))
     del models, frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -3413,7 +3472,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
             parallel = phase_parallel(*state, gen, plain_frames)
             took("parallel")
         if "quant" in phases:
-            quant = phase_quant(*state[1:], gen, plain_frames, "profile" in phases)
+            quant = phase_quant(*state[1:], gen, plain_frames)
             took("quant")
         del state, plain_frames
         gc.collect()                 # the generate phase's models go before the server's come
@@ -3442,11 +3501,7 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         torch.cuda.empty_cache()
         took("ingest")
     if "train" in phases:
-        train, (state, step_fn, batch, generator) = phase_train()
-        if "profile" in phases:
-            _profile("one training step",
-                     lambda: step_fn(state, batch, generator=generator))
-        del state, step_fn, batch
+        train = phase_train()
         torch.cuda.empty_cache()
         train_cli()
         took("train")

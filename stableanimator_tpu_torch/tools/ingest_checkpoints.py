@@ -12,24 +12,34 @@ Stages:
   2. check    each `.npz` against its model on the meta device
               (`convert/checkpoints.py::check_state_dict`): a key that
               names no parameter, a parameter the file lacks or a shape
-              that differs is an error, before any weight is loaded;
+              that differs is an error, before any weight is loaded. A
+              vanilla SVD UNet (none of the ID adapter's
+              `processor.id_to_{k,v}` keys) is checked
+              with the adapter its cross-attention gives at load time
+              (`--init_id_adapter`); a UNet with only some of those keys is
+              refused;
   3. copy     the antelopev2 and DWPose ONNX files verbatim (the port's ONNX
               executor runs them);
   4. validate (with --validate_image) the port's CLIs in subprocesses on
               --device: `cli.extract_skeleton` renders the image's skeleton
               (the image as both frames of a 2-frame clip) with the copied
               DWPose files, `cli.animate` renders those 2 frames at 512x512
-              and 25 steps from the ingested files, and the CSIM of the
+              and 25 steps from the ingested files (with --init_id_adapter
+              when the UNet is vanilla), and the CSIM of the
               frames against the image comes from
               `tools/evaluate.py::csim`. A failed CLI fails the tool.
 
 The report, printed as JSON and returned by `main`, reads `ok:<n>` (n the
-tensors checked) or `missing` for each `.npz`, and the CSIM under "csim".
+tensors the file holds; for a vanilla UNet followed by `VANILLA_NOTE`) or
+`missing` for each `.npz`, and the CSIM under "csim".
 
 The root tool's validation calls `extract_skeleton` with a flag that CLI
 does not take (`--ref_video_path`), ignores the exit, and copies the photo
 as both pose frames; here the CLI is called with the flags it takes and a
-failure is an error (ROADMAP §3, "Standing divergences").
+failure is an error. The root tool's render never passes
+`--init_id_adapter`, so its validation of a vanilla UNet fails in the JAX
+UNet for want of the adapter's parameters (ROADMAP §3, "Standing
+divergences").
 """
 
 from __future__ import annotations
@@ -77,6 +87,8 @@ ONNX_COPY = [
 MODEL_OF = {fname: name for name, fname in CHECKPOINT_FILES.items()}
 # the validation render: the root tool's size, steps and frames
 VALIDATE_HW, VALIDATE_STEPS, VALIDATE_FRAMES = 512, 25, 2
+# the report's note on a UNet file without the ID adapter
+VANILLA_NOTE = "vanilla SVD UNet: load with --init_id_adapter"
 
 
 def main(argv=None, timings: dict | None = None) -> dict:
@@ -102,6 +114,7 @@ def main(argv=None, timings: dict | None = None) -> dict:
     models = meta_models(**(micro_model_kwargs() if args.model_scale == "micro" else {}))
     seconds = dict.fromkeys(("dump", "check", "copy", "validate"), 0.0)
     report = {}
+    vanilla = False
     for pattern, npz_name, _ in PLAN:
         matches = sorted(glob.glob(os.path.join(args.source, pattern)))
         out_path = os.path.join(args.output, npz_name)
@@ -113,11 +126,13 @@ def main(argv=None, timings: dict | None = None) -> dict:
         dump_torch_checkpoint.main(["--input", matches[0], "--output", out_path])
         t1 = time.perf_counter()
         name = MODEL_OF[npz_name]
-        n = check_state_dict(name, npz_shapes(out_path), getattr(models, name))
+        n, is_vanilla = check_state_dict(name, npz_shapes(out_path), getattr(models, name))
+        vanilla |= is_vanilla
         seconds["check"] += time.perf_counter() - t1
         seconds["dump"] += t1 - t0
-        print(f"  {name}: OK ({n} tensors, keys and shapes of the port's model)")
-        report[npz_name] = f"ok:{n}"
+        print(f"  {name}: OK ({n} tensors, keys and shapes of the port's model"
+              f"{'; ' + VANILLA_NOTE if is_vanilla else ''})")
+        report[npz_name] = f"ok:{n}" + (f" ({VANILLA_NOTE})" if is_vanilla else "")
 
     t0 = time.perf_counter()
     for pattern, sub in ONNX_COPY:
@@ -131,7 +146,7 @@ def main(argv=None, timings: dict | None = None) -> dict:
     if args.validate_image:
         t0 = time.perf_counter()
         report["csim"] = validate(args.output, args.validate_image, args.device,
-                                  args.model_scale)
+                                  args.model_scale, init_id_adapter=vanilla)
         seconds["validate"] = time.perf_counter() - t0
     if timings is not None:
         timings.update(seconds)
@@ -143,10 +158,12 @@ def _cli(module: str, *flags: str) -> list[str]:
     return [sys.executable, "-m", f"stableanimator_tpu_torch.cli.{module}", *flags]
 
 
-def validate(ckpt_dir: str, image_path: str, device: str, model_scale: str = "full") -> dict:
+def validate(ckpt_dir: str, image_path: str, device: str, model_scale: str = "full",
+             init_id_adapter: bool = False) -> dict:
     """A 2-frame render from the ingested files through the port's CLIs in
-    subprocesses, and its CSIM against the image (`tools/evaluate.py::csim`
-    with the copied antelopev2 files)."""
+    subprocesses (`init_id_adapter`: the render loads a vanilla UNet with
+    --init_id_adapter), and its CSIM against the image
+    (`tools/evaluate.py::csim` with the copied antelopev2 files)."""
     from PIL import Image
 
     from stableanimator_tpu_torch.tools.evaluate import csim, load_frames
@@ -167,7 +184,8 @@ def validate(ckpt_dir: str, image_path: str, device: str, model_scale: str = "fu
                             "--output_dir", out_dir, "--height", str(VALIDATE_HW),
                             "--width", str(VALIDATE_HW),
                             "--num_inference_steps", str(VALIDATE_STEPS),
-                            "--device", device, "--model_scale", model_scale),
+                            "--device", device, "--model_scale", model_scale,
+                            *(["--init_id_adapter"] if init_id_adapter else [])),
                        check=True, env=env)
         frames = load_frames(os.path.join(out_dir, "animated_images"))
     return csim(frames, np.asarray(image), os.path.join(ckpt_dir, "antelopev2"), device=device)

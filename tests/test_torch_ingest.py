@@ -14,27 +14,43 @@
       it equals one on the in-memory weights cast as the files store them;
   (d) both tools refuse a key no model has, naming it, and report a missing
       file as "missing"; the port's check refuses a missing parameter and a
-      wrong shape too;
+      wrong shape too, and a UNet that holds only half of the ID adapter;
   (e) the port's validation renders skeletons through a correct
       `extract_skeleton` call (and fails if it cannot), where the root
-      tool's call exits 2 and the photo stands in for the poses.
+      tool's call exits 2 and the photo stands in for the poses;
+  (f) a vanilla SVD UNet (the micro tree's `unet.pth` without its ID adapter):
+      both tools write the same `unet.npz`, the port's report names it
+      vanilla, and the port's load with `init_id_adapter` equals the JAX
+      CLI's `load_params` with it at 0 error; the port's validation renders
+      it with --init_id_adapter, where the root tool's render lacks the flag
+      and the JAX UNet cannot run the parameters that load gives.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+from unittest import mock
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+from stableanimator_tpu import convert as jax_convert
+from stableanimator_tpu.cli.animate import load_params as jax_load_params
 from stableanimator_tpu.core.config import micro_model_kwargs as jax_micro_kwargs
 from stableanimator_tpu.pipeline import build_models as jax_build_models
 from stableanimator_tpu.pipeline import fast_init_params
 from stableanimator_tpu_torch.convert.checkpoints import (
     check_state_dict,
+    id_adapter_sources,
+    init_id_adapter_from_svd,
+    is_vanilla_unet,
     load_state_dicts,
     npz_shapes,
 )
@@ -325,29 +341,51 @@ def test_both_tools_refuse_an_unknown_key_and_report_missing_files(release, tmp_
     assert root_report["pose_net.npz"].startswith("ok:")
 
 
-@pytest.mark.parametrize("fault", ["unknown", "missing", "shape", "text_tower"])
+@pytest.mark.parametrize("fault", ["unknown", "missing", "shape", "text_tower", "vanilla_unet",
+                                   "half_adapter"])
 def test_check_state_dict_takes_what_the_strict_load_takes(fault):
     models = animation.meta_models(**micro_model_kwargs())
-    name = "clip" if fault == "text_tower" else "face_encoder"
-    shapes = {k: tuple(v.shape) for k, v in getattr(models, name).state_dict().items()}
+    name = {"text_tower": "clip", "vanilla_unet": "unet", "half_adapter": "unet"}.get(
+        fault, "face_encoder")
+    module = getattr(models, name)
+    shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     key = sorted(shapes)[0]
+    adapter = sorted(k for k in shapes if ".processor.id_to_" in k)
     if fault == "unknown":
         shapes["head.extra.weight"] = (3,)
     elif fault == "missing":
         del shapes[key]
     elif fault == "shape":
         shapes[key] = shapes[key] + (1,)
-    else:
+    elif fault == "text_tower":
         shapes.update(TEXT_TOWER)
+    else:
+        # the micro UNet's 10 spatial blocks carry 20 adapter keys; a vanilla
+        # file has none of them, the faulty one half
+        assert len(adapter) == 20 and sorted(id_adapter_sources(shapes)) == adapter
+        gone = adapter if fault == "vanilla_unet" else adapter[::2]
+        for k in gone:
+            del shapes[k]
+        assert is_vanilla_unet(shapes) == (fault == "vanilla_unet")
     match = {"unknown": r"unmapped torch keys \(1\): \['head.extra.weight'\]",
              "missing": rf"parameters the file lacks \(1\): \['{key}'\]",
-             "shape": rf"shapes that differ .*'{key}'"}.get(fault)
-    if match is None:
-        n = len(getattr(models, name).state_dict())
-        assert check_state_dict(name, shapes, getattr(models, name)) == n
+             "shape": rf"shapes that differ .*'{key}'",
+             "half_adapter": r"parameters the file lacks \(10\): \[.*processor\.id_to_k"}.get(fault)
+    if fault == "vanilla_unet":
+        # checked with the keys init_id_adapter_from_svd adds; the count is
+        # the file's
+        assert check_state_dict(name, shapes, module) == (len(module.state_dict()) - 20, True)
+    elif match is None:
+        assert check_state_dict(name, shapes, module) == (len(module.state_dict()), False)
     else:
         with pytest.raises(ValueError, match=match):
-            check_state_dict(name, shapes, getattr(models, name))
+            check_state_dict(name, shapes, module)
+    if fault == "half_adapter":
+        # the load's initialisation refuses it too: one definition of vanilla
+        with pytest.raises(ValueError, match=r"holds 10 of the 20 ID adapter keys"):
+            init_id_adapter_from_svd(shapes)
+        with pytest.raises(ValueError, match=r"holds 10 of the 20 ID adapter keys"):
+            init_id_adapter_from_svd({k: torch.zeros(v) for k, v in shapes.items()})
 
 
 def test_npz_shapes_reads_the_headers(tmp_path):
@@ -417,3 +455,150 @@ def test_validation_renders_skeletons_where_the_root_tool_cannot(tmp_path, monke
     with pytest.raises(subprocess.CalledProcessError):
         ingest_checkpoints.validate(str(tmp_path / "nockpt"), str(image), "cpu", "micro")
     assert len(calls) == 1 and calls[0][1] != 0
+
+
+# ---------------------------------------------------------------------------
+# (f) a vanilla SVD UNet
+# ---------------------------------------------------------------------------
+
+def _tree_with_unet(src, root, unet_sd: dict):
+    """`root`: the release tree `src` (linked) with `unet_sd` as its
+    Animation/unet.pth."""
+    (root / "Animation").mkdir(parents=True)
+    for entry in os.listdir(src):
+        if entry != "Animation":
+            os.symlink(src / entry, root / entry)
+    for f in os.listdir(src / "Animation"):
+        if f != "unet.pth":
+            os.symlink(src / "Animation" / f, root / "Animation" / f)
+    torch.save(unet_sd, root / "Animation" / "unet.pth")
+    return root
+
+
+def _root_main(argv) -> dict:
+    """The root tool's main on `argv`, its printed report."""
+    out = io.StringIO()
+    with mock.patch.object(sys, "argv", ["ingest_checkpoints.py", *argv]), \
+            contextlib.redirect_stdout(out):
+        root_ingest.main()
+    text = out.getvalue()
+    return json.loads(text[text.rindex("\n{") + 1:])
+
+
+@pytest.fixture(scope="module")
+def vanilla(release, tmp_path_factory):
+    """(the micro tree with a vanilla unet.pth, the port's output directory
+    and report, the root tool's, the vanilla state dict)."""
+    src, written = release
+    sd = {k: v for k, v in written["unet"].items() if ".processor.id_to_" not in k}
+    tmp = tmp_path_factory.mktemp("vanilla")
+    tree = _tree_with_unet(src, tmp / "tree", sd)
+    port_out, root_out = tmp / "port", tmp / "root"
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = ingest_checkpoints.main(["--source", str(tree), "--output", str(port_out),
+                                          "--model_scale", "micro"])
+    root_report = _root_main(["--source", str(tree), "--output", str(root_out)])
+    return tree, port_out, report, root_out, root_report, sd
+
+
+def test_ingest_takes_a_vanilla_svd_unet_as_the_root_tool_does(release, vanilla, tmp_path):
+    _, written = release
+    _, port_out, report, root_out, root_report, sd = vanilla
+    assert len(written["unet"]) - len(sd) == 20
+    assert sorted(report) == sorted(root_report)
+    assert report["unet.npz"] == f"ok:{len(sd)} ({ingest_checkpoints.VANILLA_NOTE})"
+    assert "--init_id_adapter" in ingest_checkpoints.VANILLA_NOTE
+    for npz, status in report.items():
+        assert status.startswith("ok:") and root_report[npz].startswith("ok:"), (npz, status)
+    assert _files(port_out) == _files(root_out)
+    for npz in report:
+        with np.load(port_out / npz) as a, np.load(root_out / npz) as b:
+            assert sorted(a.files) == sorted(b.files), npz
+            for k in b.files:
+                assert a[k].dtype == b[k].dtype, (npz, k)
+                np.testing.assert_array_equal(a[k], b[k])
+
+    # the port's load with init_id_adapter is the JAX CLI's, through the
+    # JAX package's converters, at 0 error; without it the strict load refuses
+    kwargs = dict(**micro_model_kwargs(), dtype=torch.float32, device="cpu", seed=None)
+    models = animation.build_models(**kwargs)
+    with pytest.raises(RuntimeError, match=r"Missing key\(s\).*processor\.id_to_k"):
+        load_state_dicts(str(port_out), models, allow_random_init=False, init_id_adapter=False)
+    assert load_state_dicts(str(port_out), models, allow_random_init=False,
+                            init_id_adapter=True) == list(animation.AnimationModels._fields)
+    jm = jax_build_models(**jax_micro_kwargs(), dtype=None, use_flash=False)
+    want = jax_load_params(str(root_out), jm, allow_random_init=False, init_id_adapter=True,
+                           height=64, width=64)
+    converters = {"unet": jax_convert.convert_unet, "vae": jax_convert.convert_vae,
+                  "clip": jax_convert.convert_clip_vision,
+                  "pose_net": jax_convert.convert_pose_net,
+                  "face_encoder": jax_convert.convert_face_encoder}
+    for name, convert in converters.items():
+        got = convert({k: v.numpy() for k, v in getattr(models, name).state_dict().items()})
+        got_leaves, got_tree = jax.tree_util.tree_flatten(got["params"])
+        want_leaves, want_tree = jax.tree_util.tree_flatten(want[name])
+        assert got_tree == want_tree, name
+        for a, b in zip(got_leaves, want_leaves):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    # a UNet that keeps half of the adapter is refused, naming what it lacks
+    half = dict(sd, **{k: v for k, v in sorted(written["unet"].items())
+                       if ".processor.id_to_k" in k})
+    tree = _tree_with_unet(release[0], tmp_path / "half", half)
+    with pytest.raises(ValueError, match=r"unet: parameters the file lacks \(10\).*id_to_v"):
+        ingest_checkpoints.main(["--source", str(tree), "--output", str(tmp_path / "p"),
+                                 "--model_scale", "micro"])
+
+
+def _fake_render(monkeypatch, calls: list):
+    """subprocess.run that writes two pose PNGs for the skeleton CLIs and, in
+    place of the render, records its command and raises _Rendered."""
+    def run(cmd, check=False, **kwargs):
+        if cmd[2].endswith("extract_skeleton"):
+            poses = cmd[cmd.index("--poses_folder_path") + 1]
+            os.makedirs(poses, exist_ok=True)
+            for i in range(2):
+                Image.new("RGB", (64, 64)).save(os.path.join(poses, f"frame_{i}.png"))
+            return subprocess.CompletedProcess(cmd, 0)
+        calls.append(cmd)
+        raise _Rendered
+
+    monkeypatch.setattr(subprocess, "run", run)
+
+
+def test_validation_renders_a_vanilla_unet_where_the_root_tool_cannot(vanilla, tmp_path,
+                                                                      monkeypatch):
+    tree, _, _, root_out, _, _ = vanilla
+    image = tmp_path / "face.png"
+    Image.fromarray(np.random.default_rng(6).integers(0, 255, (64, 64, 3), dtype=np.uint8)
+                    ).save(image)
+    calls = []
+    _fake_render(monkeypatch, calls)
+    with pytest.raises(_Rendered), contextlib.redirect_stdout(io.StringIO()):
+        ingest_checkpoints.main(["--source", str(tree), "--output", str(tmp_path / "port"),
+                                 "--validate_image", str(image), "--device", "cpu",
+                                 "--model_scale", "micro"])
+    with pytest.raises(_Rendered):
+        root_ingest.validate(str(root_out), str(image))
+    (port_render,), root_render = calls[:1], calls[1]
+    assert port_render[2].endswith("stableanimator_tpu_torch.cli.animate")
+    assert "--init_id_adapter" in port_render
+    assert root_render[2] == "stableanimator_tpu.cli.animate"
+    assert "--init_id_adapter" not in root_render
+
+    # what the root tool's render loads, the JAX UNet cannot run: the
+    # adapter's parameters are missing; with --init_id_adapter it runs
+    jm = jax_build_models(**jax_micro_kwargs(), dtype=None, use_flash=False)
+    ucfg = jm.unet.config
+    args = (jnp.zeros((1, 2, 8, 8, ucfg.in_channels)), jnp.float32(0.0),
+            jnp.zeros((1, 1 + ucfg.num_id_tokens, ucfg.cross_attention_dim)),
+            jnp.zeros((1, 3)), jnp.zeros((2, 8, 8, ucfg.block_out_channels[0])))
+
+    def unet_out(init_id_adapter):
+        params = jax_load_params(str(root_out), jm, allow_random_init=False,
+                                 init_id_adapter=init_id_adapter, height=64, width=64)
+        return jax.eval_shape(lambda p: jm.unet.apply({"params": p}, *args), params["unet"])
+
+    assert unet_out(True).shape == (1, 2, 8, 8, ucfg.out_channels)
+    with pytest.raises(Exception, match="id_to_k"):
+        unet_out(False)
