@@ -1,0 +1,15 @@
+"""Share of its roofline reached by the forward attention kernels of the profiled request (the UNet's
+spatial self-attention at the routed levels, the VAE decoder's mid
+attention): the least time of
+their work as counts.py counts it, over the device time of every activity
+whose name matches PATTERN: the port's kernels and PyTorch's flash,
+memory-efficient and cuDNN attention, so the same work is read whatever
+implements it."""
+
+from benchmark import trace
+
+PATTERN = r"flash_fwd|flash_resident|fmha_cutlassF|sdpa\w*fprop"
+
+
+def read(rec: dict):
+    return trace.roofline_pct(rec, PATTERN, ("fwd",))

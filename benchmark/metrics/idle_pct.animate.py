@@ -1,0 +1,7 @@
+"""Share of the profiled request in which no activity ran on the device."""
+
+from benchmark import trace
+
+
+def read(rec: dict):
+    return trace.idle_pct(rec)
