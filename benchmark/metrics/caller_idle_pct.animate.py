@@ -1,0 +1,8 @@
+"""Share of the profiled slice in which the device was idle while no program
+span was open on the host (the caller between units): spans.idle_by_span."""
+
+from benchmark import spans
+
+
+def read(rec: dict):
+    return spans.idle_pct(rec, program=False)

@@ -1,8 +1,30 @@
-"""Debug tracing and profiling (port of the JAX package's `core/trace.py`).
+"""Debug tracing and the port's spans (port of the JAX package's
+`core/trace.py`).
 
 The reference's only observability is the `todos.debug` shape/stat dump
 idiom scattered through its modules. This keeps that idiom as a flag-gated
-tool and adds the profiler hook, here torch.profiler.
+tool (`dump`) and adds spans: named, nested intervals at the program's layer
+boundaries. A request (`generate`) is the unit span "request" with the
+children "conditioning", "pose", "denoise" and "decode"; a training step
+(`make_train_step`'s step) is the unit span "train_step" with "encode",
+"forward", "backward" and "optimizer".
+
+A span records while a torch profiler is collecting, or inside
+`recording()`; otherwise it costs one check and makes nothing. A recorded
+span keeps its name, id, its parent's id, its unit's id (the id a unit span
+takes, carried by every span under it), its host start and end from
+`time.time_ns()` (the clock the profiler stamps its events with), and, when
+CUDA is in use, a pair of CUDA events recorded on the current stream at its
+open and close, which `spans()` turns into the seconds between them on the
+stream when read (the card's idle time inside the span included). A unit
+span also keeps the flash-attention launch counters' deltas over it. While
+recording, a span is a `record_function` of its name too, so a
+`torch.profiler` export shows it. Recording synchronises nothing.
+
+`timings=`: a span given a caller's dict synchronises the device at its
+open and close and adds its host seconds under its key (its name, or
+`key`), recording or not. `generate(timings=)` and the training step's
+`timings=` are this view of the spans.
 
 Usage:
     from stableanimator_tpu_torch.core import trace
@@ -10,19 +32,21 @@ Usage:
     trace.dump("latents", latents)      # shape/min/max/mean, the reference's
                                         # todos.debug.output_var line
 
-    with trace.profile("denoise", logdir="/tmp/trace"):
-        with trace.annotate("request"):
-            frames = generate(...)      # writes a Chrome trace (chrome://tracing,
-                                        # Perfetto) under logdir
+    with trace.recording():
+        frames = generate(...)
+    for s in trace.spans():             # waits for each span's closing event
+        print(s["name"], s["unit"], s["device_s"], s["counts"])
+    trace.clear()
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -87,42 +111,145 @@ def dump(name: str, x, force: bool = False):
     return x
 
 
-@contextlib.contextmanager
-def profile(name: str, logdir: Optional[str] = None):
-    """torch.profiler around a block (the CPU, and the card when there is
-    one) when `logdir` is given, its Chrome trace written to
-    `<logdir>/<name>.json`; then the wall time printed. Yields the
-    profiler (None without logdir)."""
-    t0 = time.time()
-    if logdir:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
+# -- spans -------------------------------------------------------------------
 
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        with torch_profile(activities=activities) as prof:
-            yield prof
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-        os.makedirs(logdir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
-    else:
-        yield None
-    print(f"[trace] {name}: {time.time() - t0:.3f}s"
-          + (f" (profile in {logdir})" if logdir else ""))
+_recording = 0                      # open `recording()` blocks
+_records: list[dict] = []           # recorded spans, in the order they opened
+_ids = itertools.count(1)
+_units = itertools.count(1)
+_local = threading.local()          # each thread's stack of open recorded spans
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
 
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named region in the profiler's timeline (record_function), and an
-    NVTX range on CUDA."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
+def recording():
+    """Record spans inside the block, whether or not a profiler collects."""
+    global _recording
+    _recording += 1
     try:
-        with torch.profiler.record_function(name):
-            yield
+        yield
     finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+        _recording -= 1
+
+
+def _cuda_in_use() -> bool:
+    return torch.cuda.is_initialized()
+
+
+def _synchronize() -> None:
+    if _cuda_in_use():
+        torch.cuda.synchronize()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _launch_counts() -> dict[str, int]:
+    """The flash-attention launch counters (`ops/flash_attention.py`) as a
+    unit span reads them: the streamed forward's launches, the resident
+    forward's, and the backward's (dK/dV and dQ kernels together)."""
+    from stableanimator_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_resident": fa.flash_attention_resident.launches,
+            "flash_bwd": sum(fa.flash_attention_bwd.launches.values())}
+
+
+class _Span:
+    __slots__ = ("name", "timings", "key", "unit", "attrs", "rec", "rf", "t0", "counts0",
+                 "start")
+
+    def __init__(self, name, timings, key, unit, attrs):
+        self.name, self.timings, self.key, self.unit, self.attrs = name, timings, key, unit, attrs
+        self.rec = None
+
+    def __enter__(self):
+        if self.timings is not None:
+            _synchronize()
+            self.t0 = time.perf_counter()
+        if _recording or _profiling():
+            self._open()
+        return self
+
+    def _open(self) -> None:
+        stack = _stack()
+        parent = stack[-1] if stack else None
+        unit = next(_units) if self.unit else (parent["unit"] if parent else None)
+        self.rec = {"name": self.name, "id": next(_ids),
+                    "parent": parent["id"] if parent else None, "unit": unit,
+                    "attrs": self.attrs, "start_ns": time.time_ns(), "end_ns": None,
+                    "counts": None, "events": None}
+        if self.unit:
+            self.counts0 = _launch_counts()
+        self.start = None
+        if _cuda_in_use():
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        stack.append(self.rec)
+        _records.append(self.rec)
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if self.timings is not None:
+            _synchronize()
+            self.timings[self.key] = (self.timings.get(self.key, 0.0)
+                                      + time.perf_counter() - self.t0)
+        if rec is not None:
+            self.rf.__exit__(*exc)
+            if self.start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                rec["events"] = (self.start, end)
+            if self.unit:
+                rec["counts"] = {k: v - self.counts0[k] for k, v in _launch_counts().items()}
+            rec["end_ns"] = time.time_ns()
+            _stack().pop()
+        return False
+
+
+def span(name: str, timings: dict | None = None, key: str | None = None, unit: bool = False,
+         **attrs):
+    """A span of the program (module docstring) around a `with` block.
+
+    timings: a caller's dict; the span then synchronises at its open and
+      close and adds its host seconds under `key` (default `name`).
+    unit: a unit span (a request, a training step): it takes a new unit id
+      and keeps the flash-attention launch counters' deltas.
+    attrs: kept with the record (e.g. `steps` of a denoise).
+
+    Off (no timings, no profiler collecting, no `recording()`), it returns
+    one shared empty context."""
+    if timings is None and not (_recording or _profiling()):
+        return _OFF
+    return _Span(name, timings, key or name, unit, attrs)
+
+
+def spans() -> list[dict]:
+    """The closed recorded spans, in the order they opened: {"name", "id",
+    "parent", "unit", "attrs", "start_ns", "end_ns", "counts", "device_s"}.
+    device_s, the seconds between the span's two CUDA events on the stream
+    (the card's idle time inside the span included), waits for the closing
+    one; None where CUDA was not in use."""
+    out = []
+    for rec in list(_records):
+        if rec["end_ns"] is None:
+            continue
+        events = rec["events"]
+        device_s = None
+        if events is not None:
+            events[1].synchronize()
+            device_s = events[0].elapsed_time(events[1]) / 1e3
+        out.append({**{k: v for k, v in rec.items() if k != "events"}, "device_s": device_s})
+    return out
+
+
+def clear() -> None:
+    """Forget the recorded spans."""
+    _records.clear()

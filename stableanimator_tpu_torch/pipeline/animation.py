@@ -42,13 +42,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from stableanimator_tpu_torch.core import trace
 from stableanimator_tpu_torch.core.config import (
     CLIPVisionConfig,
     FaceEncoderConfig,
@@ -499,20 +499,6 @@ def _check_mesh(mesh, device: torch.device) -> None:
         raise ValueError(f"the mesh runs on {mesh.device}, generate asked for {device}")
 
 
-def _mark(timings: dict | None, name: str | None, t0: float,
-          device: torch.device) -> float:
-    """When the caller asked for timings, synchronise the device at the
-    phase boundary and record the phase's seconds under `name`."""
-    if timings is None:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
-    if name is not None:
-        timings[name] = t - t0
-    return t
-
-
 def _prepare_denoise_state(models: AnimationModels, ref_image, pose_pixels, face_embedding,
                            cfg: PipelineConfig, device: torch.device, *, clip_image=None,
                            aug_noise=None, init_noise=None,
@@ -522,30 +508,30 @@ def _prepare_denoise_state(models: AnimationModels, ref_image, pose_pixels, face
     initial noise (one tile of noise, repeated over the video; reference
     :586-597). Noises not given are drawn from `generator`, the augmentation
     first. Returns (latents, context, image_latents, add_time_ids,
-    pose_latents), the state the denoise loop carries."""
+    pose_latents), the state the denoise loop carries. The spans
+    "conditioning" (from the inputs' copies to the device) and "pose"."""
     def dev(x):
         return None if x is None else torch.as_tensor(x).to(device)
 
-    t0 = _mark(timings, None, 0.0, device)
-    ref_image = _to_unit(dev(ref_image))
-    clip_image = _to_unit(dev(clip_image))
-    pose_pixels = _to_sym(dev(pose_pixels))
-    face_embedding = dev(face_embedding)
-    if generator is None and (aug_noise is None or init_noise is None):
-        generator = torch.Generator(device=device).manual_seed(DEFAULT_SEED)
-    if aug_noise is None:
-        aug_noise = torch.randn(ref_image.shape, generator=generator, device=device)
-    h8, w8 = cfg.height // 8, cfg.width // 8
-    if init_noise is None:
-        init_noise = torch.randn((1, cfg.tile_size, h8, w8, 4), generator=generator,
-                                 device=device)
+    with trace.span("conditioning", timings):
+        ref_image = _to_unit(dev(ref_image))
+        clip_image = _to_unit(dev(clip_image))
+        pose_pixels = _to_sym(dev(pose_pixels))
+        face_embedding = dev(face_embedding)
+        if generator is None and (aug_noise is None or init_noise is None):
+            generator = torch.Generator(device=device).manual_seed(DEFAULT_SEED)
+        if aug_noise is None:
+            aug_noise = torch.randn(ref_image.shape, generator=generator, device=device)
+        h8, w8 = cfg.height // 8, cfg.width // 8
+        if init_noise is None:
+            init_noise = torch.randn((1, cfg.tile_size, h8, w8, 4), generator=generator,
+                                     device=device)
 
-    context, image_latents, add_time_ids = encode_conditioning(
-        models, ref_image, face_embedding, cfg, clip_image=clip_image,
-        aug_noise=dev(aug_noise).float())
-    t0 = _mark(timings, "conditioning", t0, device)
-    pose_latents = models.pose_net(pose_pixels).float()
-    _mark(timings, "pose", t0, device)
+        context, image_latents, add_time_ids = encode_conditioning(
+            models, ref_image, face_embedding, cfg, clip_image=clip_image,
+            aug_noise=dev(aug_noise).float())
+    with trace.span("pose", timings):
+        pose_latents = models.pose_net(pose_pixels).float()
 
     f = pose_pixels.shape[0]
     noise = dev(init_noise).float() * make_schedule(cfg.num_inference_steps).init_noise_sigma
@@ -566,26 +552,23 @@ def _denoise_segment(models: AnimationModels, latents, context, image_latents, a
 
 
 def _generate_segmented(models: AnimationModels, state, cfg: PipelineConfig, spd: int,
-                        device: torch.device, progress=None, timings: dict | None = None,
-                        face_opt=None, mesh=None):
+                        progress=None, timings: dict | None = None, face_opt=None, mesh=None):
     """The Euler loop of `state` (from `_prepare_denoise_state`) in segments
     of `spd` steps, then `_decode_dispatched`. progress: optional
     callable(done_steps, total_steps), called after each segment is
     dispatched (the card may still be running it)."""
     latents, context, image_latents, add_time_ids, pose_latents = state
-    t0 = _mark(timings, None, 0.0, device)
     n = cfg.num_inference_steps
     done = 0
-    while done < n:
-        latents, done = _denoise_segment(models, latents, context, image_latents, add_time_ids,
-                                         pose_latents, cfg, done, min(spd, n - done), face_opt,
-                                         mesh)
-        if progress is not None:
-            progress(done, n)
-    t0 = _mark(timings, "denoise", t0, device)
-    frames = _decode_dispatched(models, latents, cfg, mesh)
-    _mark(timings, "decode", t0, device)
-    return frames
+    with trace.span("denoise", timings, steps=n):
+        while done < n:
+            latents, done = _denoise_segment(models, latents, context, image_latents,
+                                             add_time_ids, pose_latents, cfg, done,
+                                             min(spd, n - done), face_opt, mesh)
+            if progress is not None:
+                progress(done, n)
+    with trace.span("decode", timings):
+        return _decode_dispatched(models, latents, cfg, mesh)
 
 
 def resolve_steps_per_dispatch(cfg: PipelineConfig, face_opt_active: bool = False) -> int | None:
@@ -634,8 +617,10 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
                     generate with the same inputs and models
                     (parallel.shard_params makes the weights equal) and
                     gets the same frames
-    timings:        optional dict that receives seconds per phase
-                    (conditioning, pose, denoise, decode)
+    timings:        optional dict that receives the host seconds of the
+                    request's spans (conditioning, pose, denoise, decode;
+                    core/trace.py), the device synchronised at each of
+                    their boundaries
     progress:       optional callable(done_steps, total_steps), called after
                     each segment when `resolve_steps_per_dispatch` sends the
                     request to the segmented path (past 4 tiles by default)
@@ -652,21 +637,19 @@ def generate(models: AnimationModels, ref_image, pose_pixels, face_embedding,
                               num_frames=f, tile_size=min(cfg.tile_size, f))
     _check_mesh(mesh, device)
     spd = resolve_steps_per_dispatch(cfg, face_opt is not None)
-    with use_mesh(mesh):
+    with use_mesh(mesh), trace.span("request", unit=True):
         state = _prepare_denoise_state(models, ref_image, pose_pixels, face_embedding, cfg,
                                        device, clip_image=clip_image, aug_noise=aug_noise,
                                        init_noise=init_noise, generator=generator,
                                        timings=timings)
         if spd is not None:
-            return _generate_segmented(models, state, cfg, spd, device, progress, timings,
-                                       face_opt, mesh)
-        t0 = _mark(timings, None, 0.0, device)
-        schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
-        latents = denoise(models, *state, schedule, cfg, face_opt=face_opt, mesh=mesh)
-        t0 = _mark(timings, "denoise", t0, device)
-        frames = decode_frames(models, latents, cfg, mesh)
-        _mark(timings, "decode", t0, device)
-        return frames
+            return _generate_segmented(models, state, cfg, spd, progress, timings, face_opt,
+                                       mesh)
+        with trace.span("denoise", timings, steps=cfg.num_inference_steps):
+            schedule = make_schedule(cfg.num_inference_steps, SchedulerConfig(), device=device)
+            latents = denoise(models, *state, schedule, cfg, face_opt=face_opt, mesh=mesh)
+        with trace.span("decode", timings):
+            return decode_frames(models, latents, cfg, mesh)
 
 
 def _build_forward_kernels() -> list[str]:

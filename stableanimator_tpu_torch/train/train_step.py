@@ -63,6 +63,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stableanimator_tpu_torch.core import trace
 from stableanimator_tpu_torch.core.config import PipelineConfig, SchedulerConfig, TrainConfig
 from stableanimator_tpu_torch.diffusion.scheduler import (
     edm_loss_weight,
@@ -83,7 +84,7 @@ from stableanimator_tpu_torch.parallel.mesh import (
     video_sharding,
     zero_sharding_for,
 )
-from stableanimator_tpu_torch.pipeline.animation import AnimationModels, _mark, cast_models
+from stableanimator_tpu_torch.pipeline.animation import AnimationModels, cast_models
 
 DEFAULT_TRAINABLE = ("unet", "pose_net", "face_encoder")
 NOISE_KEYS = ("eps0", "ref_aug", "keep", "sigmas", "noise")
@@ -252,64 +253,66 @@ def train_loss(models: AnimationModels, batch: dict, cfg: TrainConfig, pipe: Pip
     noises: the five draws {eps0 [B*F, h, w, C], ref_aug [B, H, W, 3],
     keep [B] (0/1), sigmas [B], noise [B, F, h, w, C]}, or None to draw
     them from `generator`. encode_chunk frames go through the fp32 VAE
-    encoder at a time (per-frame, so exact). timings, when given, receives
-    the seconds of the frozen VAE encodes under "encode"."""
+    encoder at a time (per-frame, so exact). The spans "encode" (the draws
+    and the frozen VAE encodes) and "forward" (the rest); timings, when
+    given, receives their host seconds under "encode" and
+    "forward_backward"."""
     sched = sched or SchedulerConfig()
     frames = batch["frames"]
     b, f, hh, ww, _ = frames.shape
     h8, w8 = hh // 8, ww // 8
     device = frames.device
-    t0 = _mark(timings, None, 0.0, device)
-    if noises is None:
-        noises = draw_noises(batch, models.vae.config.latent_channels,
-                             conditioning_dropout_prob, sched, generator)
-    nz = {k: noises[k].to(device=device, dtype=torch.float32) for k in NOISE_KEYS}
+    with trace.span("encode", timings):
+        if noises is None:
+            noises = draw_noises(batch, models.vae.config.latent_channels,
+                                 conditioning_dropout_prob, sched, generator)
+        nz = {k: noises[k].to(device=device, dtype=torch.float32) for k in NOISE_KEYS}
 
-    # --- targets and the reference latent: the frozen fp32 VAE encoder
-    with _autograd_for(models.vae):
-        frames_flat = frames.reshape(b * f, hh, ww, 3)
-        chunk = encode_chunk if (b * f) % encode_chunk == 0 else b * f
-        moments = [models.vae.encode(frames_flat[i:i + chunk]) for i in range(0, b * f, chunk)]
-        mean = torch.cat([m for m, _ in moments])
-        logvar = torch.cat([lv for _, lv in moments])
-        x0 = (mean + torch.exp(0.5 * logvar) * nz["eps0"]) * models.vae.config.scaling_factor
-        x0 = x0.reshape(b, f, h8, w8, -1)
-        ref_in = batch["ref_image"] * 2.0 - 1.0 + pipe.noise_aug_strength * nz["ref_aug"]
-        # the conditioning latent is the posterior mode, not scaled
-        ref_lat, _ = models.vae.encode(ref_in)
-    t0 = _mark(timings, "encode", t0, device)
+        # --- targets and the reference latent: the frozen fp32 VAE encoder
+        with _autograd_for(models.vae):
+            frames_flat = frames.reshape(b * f, hh, ww, 3)
+            chunk = encode_chunk if (b * f) % encode_chunk == 0 else b * f
+            moments = [models.vae.encode(frames_flat[i:i + chunk])
+                       for i in range(0, b * f, chunk)]
+            mean = torch.cat([m for m, _ in moments])
+            logvar = torch.cat([lv for _, lv in moments])
+            x0 = (mean + torch.exp(0.5 * logvar) * nz["eps0"]) * models.vae.config.scaling_factor
+            x0 = x0.reshape(b, f, h8, w8, -1)
+            ref_in = batch["ref_image"] * 2.0 - 1.0 + pipe.noise_aug_strength * nz["ref_aug"]
+            # the conditioning latent is the posterior mode, not scaled
+            ref_lat, _ = models.vae.encode(ref_in)
+    with trace.span("forward", timings, key="forward_backward"):
+        # --- conditioning
+        context = _encode_context(models, batch["ref_image"], batch["face_embed"])
+        pose_latents = models.pose_net(batch["pose_pixels"].reshape(b * f, hh, ww, 3)).float()
+        if conditioning_dropout_prob > 0:
+            keep = nz["keep"]
+            context = context * keep[:, None, None]
+            ref_lat = ref_lat * keep[:, None, None, None]
+            pose_latents = pose_latents * keep.repeat_interleave(f)[:, None, None, None]
 
-    # --- conditioning
-    context = _encode_context(models, batch["ref_image"], batch["face_embed"])
-    pose_latents = models.pose_net(batch["pose_pixels"].reshape(b * f, hh, ww, 3)).float()
-    if conditioning_dropout_prob > 0:
-        keep = nz["keep"]
-        context = context * keep[:, None, None]
-        ref_lat = ref_lat * keep[:, None, None, None]
-        pose_latents = pose_latents * keep.repeat_interleave(f)[:, None, None, None]
+        # --- EDM noising (fp32)
+        sigmas = nz["sigmas"]
+        sig5 = sigmas[:, None, None, None, None]
+        x_t = x0 + sig5 * nz["noise"]
+        model_in = x_t / torch.sqrt(sig5**2 + 1.0)
+        ref_bcast = ref_lat[:, None].expand(b, f, h8, w8, ref_lat.shape[-1])
+        model_in = torch.cat([model_in, ref_bcast], dim=-1)
+        add_ids = torch.tensor([[pipe.fps - 1, pipe.motion_bucket_id, pipe.noise_aug_strength]],
+                               dtype=torch.float32, device=device).expand(b, 3)
+        v = models.unet(model_in, timestep_of_sigma(sigmas), context, add_ids,
+                        pose_latents).float()
 
-    # --- EDM noising (fp32)
-    sigmas = nz["sigmas"]
-    sig5 = sigmas[:, None, None, None, None]
-    x_t = x0 + sig5 * nz["noise"]
-    model_in = x_t / torch.sqrt(sig5**2 + 1.0)
-    ref_bcast = ref_lat[:, None].expand(b, f, h8, w8, ref_lat.shape[-1])
-    model_in = torch.cat([model_in, ref_bcast], dim=-1)
-    add_ids = torch.tensor([[pipe.fps - 1, pipe.motion_bucket_id, pipe.noise_aug_strength]],
-                           dtype=torch.float32, device=device).expand(b, 3)
-    v = models.unet(model_in, timestep_of_sigma(sigmas), context, add_ids,
-                    pose_latents).float()
-
-    # x0_hat from the v-prediction; EDM-weighted loss on x0
-    x0_hat = v * (-sig5 / torch.sqrt(sig5**2 + 1.0)) + x_t / (sig5**2 + 1.0)
-    lam = edm_loss_weight(sigmas)[:, None, None, None, None]
-    # face weighting at latent resolution; "nearest-exact" samples pixel
-    # 8i + 4 as jax.image.resize's "nearest" does ("nearest" would take 8i)
-    mask = batch["face_mask"].reshape(b * f, hh, ww, 1).permute(0, 3, 1, 2)
-    mask = F.interpolate(mask, size=(h8, w8), mode="nearest-exact")
-    mask = mask.permute(0, 2, 3, 1).reshape(b, f, h8, w8, 1)
-    w_face = 1.0 + cfg.face_loss_weight * mask
-    return torch.mean(lam * w_face * torch.square(x0_hat - x0))
+        # x0_hat from the v-prediction; EDM-weighted loss on x0
+        x0_hat = v * (-sig5 / torch.sqrt(sig5**2 + 1.0)) + x_t / (sig5**2 + 1.0)
+        lam = edm_loss_weight(sigmas)[:, None, None, None, None]
+        # face weighting at latent resolution; "nearest-exact" samples pixel
+        # 8i + 4 as jax.image.resize's "nearest" does ("nearest" would take 8i)
+        mask = batch["face_mask"].reshape(b * f, hh, ww, 1).permute(0, 3, 1, 2)
+        mask = F.interpolate(mask, size=(h8, w8), mode="nearest-exact")
+        mask = mask.permute(0, 2, 3, 1).reshape(b, f, h8, w8, 1)
+        w_face = 1.0 + cfg.face_loss_weight * mask
+        return torch.mean(lam * w_face * torch.square(x0_hat - x0))
 
 
 def shard_batch(batch: dict, mesh) -> dict:
@@ -367,11 +370,13 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
     generator=None, timings=None) -> (state, metrics). It updates `state`
     in place and returns it with {"loss", "grad_norm"} (fp32 scalars on
     the device; grad_norm is the raw gradients' global norm, before
-    accumulation and clipping). timings, when given, receives the seconds
-    of "encode" (frozen VAE), "forward_backward" (the rest of the loss and
-    its backward) and "optimizer" (upcast, the gradients' all-reduce under
-    a mesh, accumulation, clipping, AdamW, the copy to the models); the
-    device is synchronised at each boundary.
+    accumulation and clipping). The step is the unit span "train_step"
+    (core/trace.py) over the spans "encode" (frozen VAE), "forward" (the
+    rest of the loss), "backward" and "optimizer" (upcast, the gradients'
+    all-reduce under a mesh, accumulation, clipping, AdamW, the copy to the
+    models). timings, when given, receives the host seconds of "encode",
+    "forward_backward" (forward + backward) and "optimizer"; the device is
+    synchronised at each of their boundaries.
 
     mesh: the (data, frame) mesh (module docstring). `batch` is then this
     rank's block of the global batch (`shard_batch(batch, mesh)`: its rows,
@@ -383,51 +388,48 @@ def make_train_step(models: AnimationModels, cfg: TrainConfig, pipe: PipelineCon
 
     def step_fn(state: TrainState, batch: dict, *, noises: dict | None = None,
                 generator: torch.Generator | None = None, timings: dict | None = None):
-        device = state.masters[0].device
-        for p in state.params:
-            p.grad = None
-        t0 = _mark(timings, None, 0.0, device)
-        if mesh is not None:
-            if noises is None:
-                b, f = batch["frames"].shape[:2]
-                noises = draw_noises(batch, models.vae.config.latent_channels,
-                                     conditioning_dropout_prob, SchedulerConfig(), generator,
-                                     batch_size=b * mesh.shape[DATA_AXIS],
-                                     num_frames=f * mesh.shape[FRAME_AXIS])
-            noises = shard_batch(noises, mesh)
-        with use_mesh(mesh):                       # the UNet's frame collectives
-            loss = train_loss(models, batch, cfg, pipe,
-                              conditioning_dropout_prob=conditioning_dropout_prob,
-                              encode_chunk=encode_chunk, noises=noises, generator=generator,
-                              timings=timings)
-        loss.backward()
-        t0 = _mark(timings, "forward_backward", t0, device)
-        if timings is not None:     # the loss's own "encode" phase is not counted twice
-            timings["forward_backward"] -= timings["encode"]
-        grads = []
-        for p, m in zip(state.params, state.masters):
-            grads.append(p.grad.float() if p.grad is not None else torch.zeros_like(m))
-            p.grad = None
-        loss = loss.detach()
-        if mesh is not None:
-            all_reduce_mean(grads + [loss.reshape(1)], mesh, AXES)
-        grad_norm = global_norm(grads)
-        if k > 1:
-            if state.grad_acc is None:
-                state.grad_acc = [torch.zeros_like(m) for m in state.masters]
-            n = state.mini_step
-            for acc, g in zip(state.grad_acc, grads):      # optax's running mean
-                acc.add_((g - acc) / (n + 1))
-            state.mini_step = (n + 1) % k
-            if state.mini_step == 0:
-                _apply_update(state, state.grad_acc, cfg)
-                for acc in state.grad_acc:
-                    acc.zero_()
-        else:
-            _apply_update(state, grads, cfg)
-        del grads
-        state.step += 1
-        _mark(timings, "optimizer", t0, device)
+        with trace.span("train_step", unit=True):
+            for p in state.params:
+                p.grad = None
+            if mesh is not None:
+                if noises is None:
+                    b, f = batch["frames"].shape[:2]
+                    noises = draw_noises(batch, models.vae.config.latent_channels,
+                                         conditioning_dropout_prob, SchedulerConfig(), generator,
+                                         batch_size=b * mesh.shape[DATA_AXIS],
+                                         num_frames=f * mesh.shape[FRAME_AXIS])
+                noises = shard_batch(noises, mesh)
+            with use_mesh(mesh):                       # the UNet's frame collectives
+                loss = train_loss(models, batch, cfg, pipe,
+                                  conditioning_dropout_prob=conditioning_dropout_prob,
+                                  encode_chunk=encode_chunk, noises=noises, generator=generator,
+                                  timings=timings)
+            with trace.span("backward", timings, key="forward_backward"):
+                loss.backward()
+            with trace.span("optimizer", timings):
+                grads = []
+                for p, m in zip(state.params, state.masters):
+                    grads.append(p.grad.float() if p.grad is not None else torch.zeros_like(m))
+                    p.grad = None
+                loss = loss.detach()
+                if mesh is not None:
+                    all_reduce_mean(grads + [loss.reshape(1)], mesh, AXES)
+                grad_norm = global_norm(grads)
+                if k > 1:
+                    if state.grad_acc is None:
+                        state.grad_acc = [torch.zeros_like(m) for m in state.masters]
+                    n = state.mini_step
+                    for acc, g in zip(state.grad_acc, grads):      # optax's running mean
+                        acc.add_((g - acc) / (n + 1))
+                    state.mini_step = (n + 1) % k
+                    if state.mini_step == 0:
+                        _apply_update(state, state.grad_acc, cfg)
+                        for acc in state.grad_acc:
+                            acc.zero_()
+                else:
+                    _apply_update(state, grads, cfg)
+                del grads
+                state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn
