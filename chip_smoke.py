@@ -12,7 +12,7 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the L2 read rate (one sum over 32 reads of a 16 MB tensor, which L2
            holds)
   build    builds the flash-attention kernels (streamed forward, resident
-           forward, backward) from csrc/ with nvcc and the skeleton raster
+           forward, backward) and the fused norms from csrc/ with nvcc and the skeleton raster
            (csrc/raster.cpp) with g++, one process per source, in parallel
            (a failed build fails the run); prints the ptxas report and, from cuobjdump -sass,
            the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions of the
@@ -56,6 +56,19 @@ Phases, in order (any failure exits nonzero; no phase's exception is caught):
            the products they issue (P and dS split in two), the d = 512
            pair's at crops 24 and 32; the d = 512 pair's edges too (kv off
            its 64-row block with q off its 16-row tile, and the reverse)
+  norms    the fused GroupNorm and LayerNorm kernels (csrc/norms.cu) at the
+           main path's shapes (NORM_SHAPES: UNet level 0's spatial and
+           temporal GroupNorm with SiLU and its LayerNorm, the VAE decoder's
+           full-resolution GroupNorms, at 512x512 and 576x1024): the worst
+           error against the formula in fp64 in units of a bf16 ulp plus
+           2^-21 of the terms x a, mean a and bias (fails above 2, the CUDA
+           tests' bound; the plain version's printed beside it), then each timed beside
+           its byte bound (6 bytes an element for a GroupNorm, 4 for a
+           LayerNorm, at 3.35 TB/s), the plain version and PyTorch's call
+           (F.group_norm on a channels-first copy, F.layer_norm); at the
+           end, each shape the main paths launched that NORM_SHAPES lacks
+           is checked and timed as well, and the JSON line norm_kernels
+           gives each path's launches priced by shape
   small    micro-config generate, and two micro-config fp32 training
            steps, on the card against the same on the CPU
   face     the ONNX -> torch executor on the card: an iresnet100 stand-in
@@ -383,6 +396,27 @@ SM90_REGISTERS = {"flash_fwd_sm90_kernel": 128, "flash_resident_sm90_kernel": 12
 # forward's and the d = 512 backward pair's; no library may hold them
 RETIRED_SYMBOLS = {FWD_KERNEL: ("flash_fwd_kernel",),
                    BWD_SOURCE: ("flash_bwd_dkv_d512_kernel", "flash_bwd_dq_d512_kernel")}
+# the fused norm kernels (csrc/norms.cu, which replaces no TPU kernel: the
+# JAX package leaves its norms to XLA), timed at the main path's shapes:
+# (label, "group" or "layer", shape, SiLU): UNet level 0's spatial
+# GroupNorm (a sample a frame of the CFG batch 2 x 16) and temporal one (a
+# sample a video), its LayerNorm, and the VAE decoder's full-resolution
+# spatial and temporal GroupNorms (16 frames at once at 512 x 512, 4 at
+# 576 x 1024); bytes: a GroupNorm reads its input twice and writes once, a
+# LayerNorm reads once and writes once
+NORMS_KERNEL = "norms"
+NORM_SHAPES = (("unet_l0_spatial_gn", "group", (32, 4096, 320), True),
+               ("unet_l0_temporal_gn", "group", (2, 65536, 320), True),
+               ("unet_l0_ln", "layer", (131072, 320), False),
+               ("vae_full_spatial_gn", "group", (16, 262144, 128), True),
+               ("vae_full_temporal_gn", "group", (4, 1048576, 128), True),
+               ("pro_unet_l0_spatial_gn", "group", (32, 9216, 320), True),
+               ("pro_unet_l0_temporal_gn", "group", (2, 147456, 320), True),
+               ("pro_unet_l0_ln", "layer", (294912, 320), False),
+               ("pro_vae_full_spatial_gn", "group", (4, 589824, 128), True),
+               ("pro_vae_full_temporal_gn", "group", (1, 2359296, 128), True))
+NORM_BYTES = {"group": 6, "layer": 4}
+NORM_KERNELS = ("group_norm", "layer_norm")     # the names their launch counts go by
 # the L2 read rate: one sum that reads an fp32 tensor of L2_PROBE_BYTES,
 # which the 50 MB L2 holds, L2_PROBE_REPEATS times over (a stride-0 view)
 L2_PROBE_BYTES, L2_PROBE_REPEATS = 16 * 2**20, 32
@@ -425,7 +459,7 @@ EARLIER_BWD_MS = {DKV_KERNEL: {"train_level0": 5.378, "train_level1": 0.717},
 # the d = 512 dK/dV kernel computes S^T and dP^T once for each of its 2
 # column slices: 2 x 2 + 4
 ISSUED_PRODUCTS = {DKV_KERNEL: 6, DQ_KERNEL: 4, DKV512_KERNEL: 8, DQ512_KERNEL: 4}
-ALL_PHASES = ("device", "build", "kernels", "small", "face", "dwpose", "generate", "pro",
+ALL_PHASES = ("device", "build", "kernels", "norms", "small", "face", "dwpose", "generate", "pro",
               "faceopt", "export", "parallel", "quant", "serve", "longvideo", "ingest", "train",
               "profile")
 # phases run only when --phases names them (each takes minutes of its own)
@@ -713,7 +747,7 @@ def phase_build():
     from stableanimator_tpu_torch.preproc import native_raster
 
     t0 = time.perf_counter()
-    sources = (FWD_KERNEL, RES_KERNEL, BWD_SOURCE, native_raster.LIBRARY)
+    sources = (FWD_KERNEL, RES_KERNEL, BWD_SOURCE, NORMS_KERNEL, native_raster.LIBRARY)
     # one compiler per source (nvcc for the kernels, g++ for the raster)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(build.build_kernel, sources)))
@@ -1005,6 +1039,95 @@ def phase_kernels(l2_rate: float):
     return max_err, rows
 
 
+def phase_norms() -> list:
+    """The fused GroupNorm and LayerNorm kernels at NORM_SHAPES, each checked
+    and timed (`_norm_row`)."""
+    rows = [_norm_row(*spec) for spec in NORM_SHAPES]
+    log(json.dumps({"norm_shapes": rows}))
+    return rows
+
+
+def _norm_row(lbl: str, kind: str, shape, silu: bool) -> dict:
+    """A norm kernel ("group" [N, rows, C] or "layer" [rows, C]) on seeded
+    bf16 data, checked against the formula in fp64 (its worst error in
+    bf16 ulps), then timed beside its byte bound, the plain version and
+    PyTorch's own call (`F.group_norm` over a channels-first copy,
+    `F.layer_norm`; SiLU after it where the row has one), which the port
+    never calls."""
+    import torch.nn.functional as F
+
+    from stableanimator_tpu_torch.ops import norms
+
+    gen = torch.Generator(device="cuda").manual_seed(len(lbl))
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.25).bfloat16()
+    w = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    if kind == "group":
+        def kernel():
+            return norms.group_norm(x, w, b, 32, 1e-6, silu=silu)
+
+        def plain():
+            return norms.group_norm_reference(x, w, b, 32, 1e-6, silu=silu)
+        xc = x.transpose(1, 2).contiguous()             # [N, C, rows]
+        wl, bl = w.bfloat16(), b.bfloat16()
+
+        def library():
+            y = F.group_norm(xc, 32, wl, bl, 1e-6)
+            return F.silu(y) if silu else y
+        dims, x64 = (1, 3), x.double().reshape(shape[0], -1, 32, c // 32)
+        wv, bv = w.double().reshape(32, -1), b.double().reshape(32, -1)
+    else:
+        def kernel():
+            return norms.layer_norm(x, w, b)
+
+        def plain():
+            return norms.layer_norm_reference(x, w, b)
+        wl, bl = w.bfloat16(), b.bfloat16()
+
+        def library():
+            return F.layer_norm(x, (c,), wl, bl)
+        dims, x64, wv, bv = (-1,), x.double(), w.double(), b.double()
+    got = kernel()
+    var, mean = torch.var_mean(x64, dim=dims, keepdim=True, unbiased=False)
+    a = torch.rsqrt(var + (1e-6 if kind == "group" else 1e-5)) * wv
+    shift = bv - mean * a
+    want = x64 * a + shift
+    want = (F.silu(want) if silu else want).reshape(shape)
+    # a bf16 ulp of the output, plus 2^-21 of the terms x a, mean a and
+    # bias that make it (the fp32 error that cancellation leaves near
+    # 0): the CUDA tests' bound is 2 of these units
+    _, e = torch.frexp(want)
+    unit = (torch.ldexp(torch.ones_like(want), e - 8)
+            + ((x64 * a).abs() + (mean * a).abs() + bv.abs()).reshape(shape) * 2.0 ** -21)
+    del x64, var, mean, a, shift, e
+    ulps = ((got.double() - want).abs() / unit).max()
+    plain_err = ((plain().double() - want).abs() / unit).max()
+    del want, unit
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kernel, iters=20)
+    plain_ms = cuda_ms(plain, iters=5)
+    lib_ms = cuda_ms(library, iters=20)
+    nbytes = NORM_BYTES[kind] * x.numel()
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = (norms.group_norm_geometry(shape[0], x.numel() // (shape[0] * c), c, 8, sms)
+           if kind == "group" else {"vectors_a_lane": norms.layer_norm_vectors(c, 8),
+                                    "ctas": norms.layer_norm_blocks(x.numel() // c, sms)})
+    row = dict(label=lbl, kind=kind, shape=list(shape), silu=silu, ms=ms, bound_ms=bound_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, roofline_pct=100 * bound_ms / ms,
+               ulps=ulps.item(), plain_ulps=plain_err.item(), geometry=geo)
+    log(f"[norms] {kind}_norm {lbl} {tuple(shape)} bf16 silu={silu}: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e9:.3f} TB/s, {row['roofline_pct']:.1f} % of the byte bound "
+        f"{bound_ms:.4f} ms), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms; worst error "
+        f"{row['ulps']:.3f} units (plain {row['plain_ulps']:.3f}); {geo}")
+    if row["ulps"] > 2.0:
+        raise SystemExit(f"{lbl}: the norm kernel is {row['ulps']:.3f} units from fp64")
+    del x, got
+    torch.cuda.empty_cache()
+    return row
+
+
 def _inputs(h, w, f, id_dim, device, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     ref = torch.rand((1, h, w, 3), generator=gen, device=device)
@@ -1108,7 +1231,7 @@ def phase_small():
 
 def phase_generate(steps: int):
     from stableanimator_tpu_torch.core.config import PipelineConfig
-    from stableanimator_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from stableanimator_tpu_torch.ops.flash_attention import flash_attention
     from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 
     t0 = time.perf_counter()
@@ -1125,13 +1248,14 @@ def phase_generate(steps: int):
     for run in ("warm-up", "timed"):
         torch.cuda.reset_peak_memory_stats()
         timings: dict = {}
-        reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = flash_attention.launches
         by_shape = dict(flash_attention.launches_by_shape)
+        norm_launches = _norm_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(torch.isfinite(frames).all())
         lo, hi = frames.min().item(), frames.max().item()
@@ -1139,8 +1263,8 @@ def phase_generate(steps: int):
             + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
             + f"; peak {peak_gb:.1f} GiB; flash launches {launches} (expected {expected}), "
             "by (B, Sq, Sk, H, D) " + ", ".join(f"{key}: {n}" for key, n in by_shape.items())
-            + f"; out {tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}] "
-            f"mean {frames.float().mean().item():.5f}")
+            + f"; {_norm_note(norm_launches)}; out {tuple(frames.shape)} finite={finite} range "
+            f"[{lo:.4f}, {hi:.4f}] mean {frames.float().mean().item():.5f}")
         if tuple(frames.shape) != (cfg.num_frames, cfg.height, cfg.width, 3):
             raise SystemExit(f"bad output shape {tuple(frames.shape)}")
         if not finite or lo < 0.0 or hi > 1.0:
@@ -1148,13 +1272,44 @@ def phase_generate(steps: int):
         if launches != expected:
             raise SystemExit(f"flash kernel launched {launches} times, expected {expected}")
         results[run] = dict(seconds=total, phases=timings, launches=launches,
-                            by_shape=by_shape, peak_gib=peak_gb)
+                            by_shape=by_shape, norms=norm_launches, peak_gib=peak_gb)
     return results, (models, cfg, ref, pose, face), frames
 
 
+def _reset_counts() -> None:
+    """Zero the flash kernels' and the norm kernels' launch counters."""
+    from stableanimator_tpu_torch.ops import flash_attention, norms
+
+    flash_attention.reset_launch_counts()
+    norms.reset_counts()
+
+
+def _norm_launches() -> dict:
+    """The norm kernels' launches since the last reset, by (kernel, shape):
+    ("group_norm", (N, rows, C, silu)) and ("layer_norm", (rows, C))."""
+    from stableanimator_tpu_torch.ops import norms
+
+    return {(fn.__name__, key): n for fn in (norms.group_norm, norms.layer_norm)
+            for key, n in fn.launches_by_shape.items()}
+
+
+def _norm_note(launches: dict) -> str:
+    """The norm kernels' launches and the CUDA norm calls that took the
+    plain version, for a log line."""
+    from stableanimator_tpu_torch.ops import norms
+
+    by_kernel = collections.Counter()
+    for (name, _), n in launches.items():
+        by_kernel[name] += n
+    return (f"norm launches {dict(by_kernel)} at {len(launches)} shapes, plain CUDA norm calls "
+            f"{norms.group_norm.eager_calls + norms.layer_norm.eager_calls}")
+
+
 def _launch_counts() -> dict:
-    """Launches since the last reset, by kernel, and by (kernel, shape); and
-    the calls the resident route's capacity test refused."""
+    """Launches since the last reset: the flash kernels' by kernel; by
+    (kernel, shape) the flash kernels' and the norm kernels'
+    (`_norm_launches`); and the calls the resident route's capacity test
+    refused."""
     from stableanimator_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
@@ -1168,6 +1323,7 @@ def _launch_counts() -> dict:
     by_shape.update({(RES_KERNEL, key): n
                      for key, n in flash_attention_resident.launches_by_shape.items()})
     by_shape.update(flash_attention_bwd.launches_by_shape)
+    by_shape.update(_norm_launches())
     return {"by_kernel": counts, "by_shape": by_shape,
             "refused": flash_attention_resident.refused}
 
@@ -1194,7 +1350,6 @@ def phase_ab(models, cfg, ref, pose, face):
     budget at 0 (streamed kernel) and at 4 MiB (resident kernel at UNet
     levels 0 and 1), in turns 0, 4 MiB, 4 MiB, 0; each run's launches
     asserted."""
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import generate
 
     cfg = dataclasses.replace(cfg, num_inference_steps=min(AB_STEPS, cfg.num_inference_steps))
@@ -1204,7 +1359,7 @@ def phase_ab(models, cfg, ref, pose, face):
     times = {0: [], RESIDENT_BUDGET: []}
     for budget in (0, RESIDENT_BUDGET, RESIDENT_BUDGET, 0):
         with _resident_budget(budget):
-            reset_launch_counts()
+            _reset_counts()
             t0 = time.perf_counter()
             generate(models, ref, pose, face, cfg, device="cuda")
             torch.cuda.synchronize()
@@ -1233,7 +1388,7 @@ def phase_pro(models, steps: int) -> dict:
     sequential decode branch), nothing else (the fp32 VAE encode of the
     reference stays plain)."""
     from stableanimator_tpu_torch.core.config import PipelineConfig
-    from stableanimator_tpu_torch.ops.flash_attention import flash_attention, reset_launch_counts
+    from stableanimator_tpu_torch.ops.flash_attention import flash_attention
     from stableanimator_tpu_torch.pipeline.animation import generate
 
     h, w = PRO_HW
@@ -1251,12 +1406,13 @@ def phase_pro(models, steps: int) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         timings: dict = {}
-        reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         by_shape = dict(flash_attention.launches_by_shape)
+        norm_launches = _norm_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         f32 = frames.float()
         finite = bool(torch.isfinite(f32).all())
@@ -1268,8 +1424,8 @@ def phase_pro(models, steps: int) -> dict:
             + f"; peak {peak_gb:.1f} GiB; flash launches {flash_attention.launches} (expected "
             f"{sum(want.values())}), by (B, Sq, Sk, H, D) "
             + ", ".join(f"{key}: {n}" for key, n in by_shape.items())
-            + f"; out {tuple(frames.shape)} finite={finite} range [{lo:.4f}, {hi:.4f}] std "
-            f"{std:.4f}, frame-to-frame std {motion:.4f}")
+            + f"; {_norm_note(norm_launches)}; out {tuple(frames.shape)} finite={finite} range "
+            f"[{lo:.4f}, {hi:.4f}] std {std:.4f}, frame-to-frame std {motion:.4f}")
         checks = {
             f"frames (16, {h}, {w}, 3)": tuple(frames.shape) == (cfg.num_frames, h, w, 3),
             "finite in [0, 1]": finite and lo >= 0.0 and hi <= 1.0,
@@ -1280,7 +1436,8 @@ def phase_pro(models, steps: int) -> dict:
         if failed:
             raise SystemExit(f"the {h}x{w} request ({run}) failed its checks: {failed}")
         results[run] = dict(seconds=total, phases=timings, launches=flash_attention.launches,
-                            by_shape=by_shape, peak_gib=peak_gb, steps=n_steps)
+                            by_shape=by_shape, norms=norm_launches, peak_gib=peak_gb,
+                            steps=n_steps)
     del frames, f32
     torch.cuda.empty_cache()
     return results
@@ -1328,7 +1485,6 @@ def _longvideo_request(steps: int, budget: int, n_frames: int = LONGVIDEO_FRAMES
 
     from stableanimator_tpu_torch.cli import animate
     from stableanimator_tpu_torch.diffusion.tiling import tile_indices
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
 
     hw = 512
     n_tiles, calls, per_segment, decode_groups = LONG_PLANS[n_frames]
@@ -1342,7 +1498,7 @@ def _longvideo_request(steps: int, budget: int, n_frames: int = LONGVIDEO_FRAMES
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with _resident_budget(budget):
-            reset_launch_counts()
+            _reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(_Tee()) as printed:
                 info = animate.main(argv)
@@ -1661,7 +1817,6 @@ def phase_driving(steps: int, dwpose_dir: str) -> dict:
         extract_skeleton,
         extract_training_skeletons,
     )
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
 
     hw, n = DWPOSE_HW, DWPOSE_FRAMES
     seen = []
@@ -1691,7 +1846,7 @@ def phase_driving(steps: int, dwpose_dir: str) -> dict:
         animation.generate = spy
         try:
             with _DevicePeak() as device_peak:
-                reset_launch_counts()
+                _reset_counts()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(_Tee()) as printed:
                     info = animate.main(argv)
@@ -1918,7 +2073,6 @@ def _faceopt_request(models, cfg, ref, pose, face, gen: dict, plain_frames, face
     """One face-opt request at latent crop `crop`, warm-up and timed, its
     launches held to `want` (by kernel); the identity cost at step 8 before
     the refine and after one step along it."""
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import generate
     from stableanimator_tpu_torch.pipeline.face_opt import FaceOptConfig, make_face_optimizer
     from stableanimator_tpu_torch.preproc.onnx_to_torch import load_onnx_function
@@ -1947,7 +2101,7 @@ def _faceopt_request(models, cfg, ref, pose, face, gen: dict, plain_frames, face
         refined_at.clear()
         torch.cuda.reset_peak_memory_stats()
         timings: dict = {}
-        reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings,
                           face_opt=opt)
@@ -2023,11 +2177,14 @@ def phase_export(models, cfg) -> dict:
     del program
     args = em.unet_inputs(unet, b, f, h8, w8, "cuda", seed=1)
     with torch.no_grad():
-        fa.reset_launch_counts()
+        _reset_counts()
         got = exported(*args)
         torch.cuda.synchronize()
         by_shape = dict(fa.flash_attention.launches_by_shape)
+        norm_exported = _norm_launches()
+        _reset_counts()
         want = unet(*args)
+        norm_eager = _norm_launches()
         share = ((got.float() - want.float()).abs() / fa.kernel_tolerance(want)).max().item()
         ms = {"eager": cuda_ms(lambda: unet(*args), iters=3, warmup=1),
               "exported": cuda_ms(lambda: exported(*args), iters=3, warmup=1)}
@@ -2037,10 +2194,16 @@ def phase_export(models, cfg) -> dict:
         f"(expected {expected}); output {tuple(got.shape)} {str(got.dtype)[6:]}, max "
         f"|exported - eager| "
         f"{(got.float() - want.float()).abs().max().item():.3e}, {share:.3f} of "
-        f"kernel_tolerance; ms per call eager {ms['eager']:.1f}, exported {ms['exported']:.1f}")
+        f"kernel_tolerance; ms per call eager {ms['eager']:.1f}, exported {ms['exported']:.1f}; "
+        f"the exported program's {_norm_note(norm_exported)} (the eager module's "
+        f"{sum(norm_eager.values())} at {len(norm_eager)} shapes)")
+    norm_nodes = sum(ops[f"stableanimator.{name}_fwd.default"] for name in NORM_KERNELS)
     checks = {"the custom op in the graph": ops.get("stableanimator.flash_attention_fwd.default", 0)
               == 10,
               "kernel launches from the exported program": by_shape == expected,
+              "norm kernel launches from the exported program, one a norm node, as the eager "
+              "module's": (norm_nodes > 0 and norm_exported == norm_eager
+                           and sum(norm_exported.values()) == norm_nodes),
               "output within kernel_tolerance of the eager module": share <= 1.0}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2081,22 +2244,27 @@ def _export_roundtrip() -> dict:
     export_s, save_s, load_s = (t1 - t0 for t0, t1 in zip(sec, sec[1:]))
     args = em.unet_inputs(unet, b, f, h8, w8, "cuda", seed=1)
     with torch.no_grad():
-        fa.reset_launch_counts()
+        _reset_counts()
         want = unet(*args)
         torch.cuda.synchronize()
         eager = dict(fa.flash_attention.launches_by_shape)
-        fa.reset_launch_counts()
+        norm_eager = _norm_launches()
+        _reset_counts()
         got = reloaded(*args)
         torch.cuda.synchronize()
         by_shape = dict(fa.flash_attention.launches_by_shape)
+        norm_reloaded = _norm_launches()
     share = ((got.float() - want.float()).abs() / fa.kernel_tolerance(want)).max().item()
     log(f"[export] micro UNet (one 64-wide head a level) at [{b}, {f}, {h8}, {w8}, 8]: export "
         f"{export_s:.1f} s, save {save_s:.1f} s ({size / 1e6:.1f} MB), load {load_s:.1f} s; the "
         f"reloaded program's flash launches {by_shape} (the eager module's {eager}); max "
         f"|reloaded - eager| "
         f"{(got.float() - want.float()).abs().max().item():.3e}, {share:.3f} of "
-        "kernel_tolerance")
+        f"kernel_tolerance; the reloaded program's {_norm_note(norm_reloaded)} (the eager "
+        f"module's {sum(norm_eager.values())})")
     checks = {"kernel launches from the reloaded program": bool(by_shape) and by_shape == eager,
+              "norm kernel launches from the reloaded program as the eager module's":
+                  bool(norm_reloaded) and norm_reloaded == norm_eager,
               "output within kernel_tolerance of the eager module": share <= 1.0}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2164,7 +2332,6 @@ def phase_serve(root: str, gen: dict | None, steps: int) -> dict:
     from PIL import Image
 
     from stableanimator_tpu_torch.cli import serve
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
 
     def b64_png(arr):
         buf = io.BytesIO()
@@ -2216,7 +2383,7 @@ def phase_serve(root: str, gen: dict | None, steps: int) -> dict:
             raise SystemExit(f"/healthz answered {status} {health}")
         for fmt in ("mp4", "json"):
             torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
+            _reset_counts()
             t0 = time.perf_counter()
             status, ctype, data = request(addr, "POST", "/animate", dict(body, format=fmt))
             wall = time.perf_counter() - t0
@@ -2258,7 +2425,6 @@ def _train_steps(state, step_fn, batch, generator, tag: str, expected: dict):
     `expected`, and the sampled fp32 masters moved by every update at a
     nonzero lr (update 0 runs at lr 0). Returns the steps' records and the
     timed steps' mean seconds and phases."""
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
 
     b, f, h, w, _ = batch["frames"].shape
     # a sample of every master: the first 4096 elements of each tensor
@@ -2268,7 +2434,7 @@ def _train_steps(state, step_fn, batch, generator, tag: str, expected: dict):
         run = "warm-up" if i == 0 else f"timed {i}"
         torch.cuda.reset_peak_memory_stats()
         timings: dict = {}
-        reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, generator=generator, timings=timings)
         torch.cuda.synchronize()
@@ -2491,7 +2657,6 @@ def _parallel_train(mesh) -> dict:
     weights): two one-device steps first, from two fresh states, give the
     run-to-run spread of loss and grad_norm."""
     from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models
     from stableanimator_tpu_torch.train.train_step import create_train_state, make_train_step
 
@@ -2511,7 +2676,7 @@ def _parallel_train(mesh) -> dict:
         generator = torch.Generator(device="cuda").manual_seed(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, generator=generator)
         torch.cuda.synchronize()
@@ -2659,7 +2824,6 @@ def _frame_full(mesh, tmp: str) -> dict:
     rank's 8 frames; each step's seconds, peak memory, launches (which must
     be TRAIN_LAUNCHES), loss and grad_norm."""
     from stableanimator_tpu_torch.core.config import PipelineConfig, TrainConfig
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models
     from stableanimator_tpu_torch.train.train_step import (
         create_train_state,
@@ -2683,7 +2847,7 @@ def _frame_full(mesh, tmp: str) -> dict:
     for i in range(FRAME_STEPS):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        _reset_counts()
         timings: dict = {}
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, generator=generator, timings=timings)
@@ -2883,7 +3047,6 @@ def phase_parallel(models, cfg, ref, pose, face, gen: dict, plain_frames) -> dic
     training CLI under torchrun."""
     import torch.distributed as dist
 
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.parallel import make_mesh
     from stableanimator_tpu_torch.pipeline.animation import generate
 
@@ -2894,7 +3057,7 @@ def phase_parallel(models, cfg, ref, pose, face, gen: dict, plain_frames) -> dic
     out = {}
     for run, kw in (("mesh", dict(mesh=mesh)), ("plain", {})):
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        _reset_counts()
         timings: dict = {}
         t0 = time.perf_counter()
         frames = generate(models, ref, pose, face, cfg, device="cuda", timings=timings, **kw)
@@ -2983,7 +3146,6 @@ def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames) -> dict:
     QUANT_SHORT_STEPS-step warm-up, then the timed request at the generate
     phase's steps), its launches, frames and, for the timed one, their
     difference from the bf16 request's."""
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models, generate
 
     _quant_dense_check()
@@ -2995,7 +3157,7 @@ def phase_quant(cfg, ref, pose, face, gen: dict, plain_frames) -> dict:
     for run, run_cfg in (("warm-up", short), ("timed", cfg)):
         expected = 10 * run_cfg.num_inference_steps + 1
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        _reset_counts()
         timings: dict = {}
         t0 = time.perf_counter()
         frames = generate(models, ref, pose, face, run_cfg, device="cuda", timings=timings)
@@ -3177,7 +3339,6 @@ def phase_ingest(standins: str, dwpose: str | None) -> dict:
 
     from stableanimator_tpu_torch.convert.checkpoints import load_state_dicts
     from stableanimator_tpu_torch.core.config import PipelineConfig
-    from stableanimator_tpu_torch.ops.flash_attention import reset_launch_counts
     from stableanimator_tpu_torch.pipeline.animation import build_models, generate
     from stableanimator_tpu_torch.preproc import standins as standin_files
     from stableanimator_tpu_torch.tools import eval_drill, ingest_checkpoints
@@ -3255,7 +3416,7 @@ def phase_ingest(standins: str, dwpose: str | None) -> dict:
         expected = 10 * INGEST_STEPS + 1
         frames = {}
         for tag, models in (("ingested", loaded), ("direct", direct)):
-            reset_launch_counts()
+            _reset_counts()
             t0 = time.perf_counter()
             frames[tag] = generate(models, ref, pose, face, cfg, device="cuda")
             torch.cuda.synchronize()
@@ -3292,21 +3453,30 @@ def phase_ingest(standins: str, dwpose: str | None) -> dict:
     return out
 
 
-def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=None,
-                    parallel=None, quant=None, pro=None, ingest=None) -> list:
-    """The JSON line's entries: each kernel's times at its shapes, weighted
-    by the launches the main paths made at those shapes (generate's timed
-    request, the timed 576x1024 request, the timed face-opt request, the
-    mesh request and the mesh training step, the timed quant request, the
-    server's first request, the 64-frame CLI request, one timed training
+PER_REQUEST_OF = ("sum over the launches of generate's timed request, of the timed 576x1024 "
+                  "request, of the timed face-opt requests at crops 16 and 32, of the mesh "
+                  "request and the mesh training step, of the timed quant request, of the "
+                  "server's first request, of the 64-frame CLI request, of one timed training "
+                  "step at 512x512 and one on the vertical bucket, of the first frame-sharded "
+                  "step on both ranks, and of the ingest phase's request on the ingested models")
+
+
+def _paths(gen, longvideo, train, faceopt=None, served=None, parallel=None, quant=None, pro=None,
+           ingest=None) -> dict:
+    """The launches by (kernel, shape) of each main path that ran (generate's
+    timed request, the timed 576x1024 request, the timed face-opt request,
+    the mesh request and the mesh training step, the timed quant request,
+    the server's first request, the 64-frame CLI request, one timed training
     step at 512x512 and one on the vertical bucket, and the timed face-opt
     request at crop 32, the first frame-sharded step on both ranks, and the
     ingest phase's request on the ingested models)."""
     paths = {}
     if gen:
         paths["generate"] = {(FWD_KERNEL, key): n for key, n in gen["timed"]["by_shape"].items()}
+        paths["generate"].update(gen["timed"]["norms"])
     if pro:
         paths["pro"] = {(FWD_KERNEL, key): n for key, n in pro["timed"]["by_shape"].items()}
+        paths["pro"].update(pro["timed"]["norms"])
     if faceopt:
         paths["faceopt"] = faceopt["timed"]["by_shape"]
         paths[f"faceopt_crop{FACEOPT_BIG_CROP}"] = (
@@ -3329,6 +3499,13 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
     if train:
         paths["train"] = train["steps"][-1]["by_shape"]
         paths["train_vertical"] = train["vertical"]["steps"][-1]["by_shape"]
+    return paths
+
+
+def _kernel_entries(max_err, rows, paths) -> list:
+    """The JSON line's entries: each flash kernel's times at its shapes,
+    weighted by the launches the main paths (`_paths`) made at those
+    shapes."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     entries = []
     for name in KERNELS:
@@ -3366,14 +3543,7 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": bound_by,
             "library_ms": total["library_ms"],
-            "per_request_of": "sum over the launches of generate's timed request, of the "
-                              "timed 576x1024 request, of the timed face-opt requests at "
-                              "crops 16 and 32, of the mesh request and the mesh training "
-                              "step, of the timed quant request, of the server's first "
-                              "request, of the 64-frame CLI request, of one timed "
-                              "training step at 512x512 and one on the vertical bucket, "
-                              "of the first frame-sharded step on both ranks, and of the "
-                              "ingest phase's request on the ingested models",
+            "per_request_of": PER_REQUEST_OF,
             "per_path": per_path,
             "library_of": ("scaled_dot_product_attention" if name in (FWD_KERNEL, RES_KERNEL)
                            else "scaled_dot_product_attention's backward (fwd+bwd less fwd), "
@@ -3381,6 +3551,49 @@ def _kernel_entries(max_err, rows, gen, longvideo, train, faceopt=None, served=N
             "plain_of": ("flash_attention_reference" if name in (FWD_KERNEL, RES_KERNEL) else
                          "flash_attention_bwd_reference, which computes dq, dk and dv together"),
             "shapes": {lbl: r for lbl, r in rows[name]},
+        })
+    return entries
+
+
+def _norm_entries(rows, paths) -> list:
+    """The norm kernels' entries of the JSON line, as `_kernel_entries`'s:
+    each kernel's times weighted by the launches the main paths (`_paths`)
+    made at each shape. A shape a path launched that NORM_SHAPES lacks is
+    checked and timed here first (`_norm_row`), so every launch is priced."""
+    def row_key(r):
+        if r["kind"] == "group":
+            return "group_norm", (*r["shape"], r["silu"])
+        return "layer_norm", tuple(r["shape"])
+
+    by_key = {row_key(r): r for r in rows}
+    launched = {k for counts in paths.values() for k in counts if k[0] in NORM_KERNELS}
+    untimed = sorted(launched - set(by_key))
+    if untimed:
+        log(f"[norms] {len(untimed)} shapes the main paths launched beyond NORM_SHAPES: {untimed}")
+    for name, shape in untimed:
+        kind, silu = ("group", shape[3]) if name == "group_norm" else ("layer", False)
+        by_key[(name, shape)] = _norm_row(f"{name} {shape}", kind, shape[:3], silu)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    entries = []
+    for name in NORM_KERNELS:
+        per_path = {}
+        for p, counts in paths.items():
+            mine = {k: n for k, n in counts.items() if k[0] == name}
+            per_path[p] = dict(launches=sum(mine.values()),
+                               **{key: sum(by_key[k][key] * n for k, n in mine.items())
+                                  for key in keys})
+        total = {key: sum(pp[key] for pp in per_path.values()) if paths else None for key in keys}
+        entries.append({
+            "name": name, "route": "cuda", "source": "stableanimator_tpu_torch/csrc/norms.cu",
+            "replaces": None,
+            "launches": sum(pp["launches"] for pp in per_path.values()) if paths else None,
+            **total, "bound_by": "bytes", "per_request_of": PER_REQUEST_OF, "per_path": per_path,
+            "library_of": ("F.group_norm on a channels-first copy, then F.silu where the call "
+                           "has SiLU" if name == "group_norm" else "F.layer_norm"),
+            "plain_of": f"{name}_reference",
+            "shapes": {r["label"]: dict(r, launches={p: counts.get(k, 0)
+                                                      for p, counts in paths.items()})
+                       for k, r in by_key.items() if k[0] == name},
         })
     return entries
 
@@ -3442,6 +3655,9 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
     if "kernels" in phases:
         max_err, rows = phase_kernels(l2_rate or l2_read_rate())
         took("kernels")
+    if "norms" in phases:
+        norm_rows = phase_norms()
+        took("norms")
     if "small" in phases:
         phase_small()
         took("small")
@@ -3505,9 +3721,12 @@ def _run(phases, steps: int, t_start: float, standins: str) -> int:
         torch.cuda.empty_cache()
         train_cli()
         took("train")
+    paths = _paths(gen, longvideo, train, faceopt, served, parallel, quant, pro, ingest)
     if "kernels" in phases:
-        log(json.dumps({"kernels": _kernel_entries(max_err, rows, gen, longvideo, train, faceopt,
-                                                   served, parallel, quant, pro, ingest)}))
+        log(json.dumps({"kernels": _kernel_entries(max_err, rows, paths)}))
+    if "norms" in phases:
+        log(json.dumps({"norm_kernels": _norm_entries(norm_rows, paths)}))
+        took("norm entries")
     log(f"[chip_smoke] phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ takes, carried by every span under it), its host start and end from
 CUDA is in use, a pair of CUDA events recorded on the current stream at its
 open and close, which `spans()` turns into the seconds between them on the
 stream when read (the card's idle time inside the span included). A unit
-span also keeps the flash-attention launch counters' deltas over it. While
+span also keeps the deltas over it of the flash-attention launch counters
+and of the norms' counters (`_launch_counts`). While
 recording, a span is a `record_function` of its name too, so a
 `torch.profiler` export shows it. Recording synchronises nothing.
 
@@ -150,14 +151,19 @@ def _stack() -> list:
 
 
 def _launch_counts() -> dict[str, int]:
-    """The flash-attention launch counters (`ops/flash_attention.py`) as a
-    unit span reads them: the streamed forward's launches, the resident
-    forward's, and the backward's (dK/dV and dQ kernels together)."""
+    """The kernel counters as a unit span reads them: the flash-attention
+    launches (`ops/flash_attention.py`: the streamed forward's, the resident
+    forward's, and the backward's, dK/dV and dQ kernels together), and of
+    the norms (`ops/norms.py`, GroupNorm and LayerNorm together) the fused
+    kernels' launches and the CUDA calls that ran the plain version."""
     from stableanimator_tpu_torch.ops import flash_attention as fa
+    from stableanimator_tpu_torch.ops import norms
 
     return {"flash_fwd": fa.flash_attention.launches,
             "flash_resident": fa.flash_attention_resident.launches,
-            "flash_bwd": sum(fa.flash_attention_bwd.launches.values())}
+            "flash_bwd": sum(fa.flash_attention_bwd.launches.values()),
+            "norm_kernel": norms.group_norm.kernel_calls + norms.layer_norm.kernel_calls,
+            "norm_eager": norms.group_norm.eager_calls + norms.layer_norm.eager_calls}
 
 
 class _Span:
@@ -221,7 +227,7 @@ def span(name: str, timings: dict | None = None, key: str | None = None, unit: b
     timings: a caller's dict; the span then synchronises at its open and
       close and adds its host seconds under `key` (default `name`).
     unit: a unit span (a request, a training step): it takes a new unit id
-      and keeps the flash-attention launch counters' deltas.
+      and keeps the kernel counters' deltas (`_launch_counts`).
     attrs: kept with the record (e.g. `steps` of a denoise).
 
     Off (no timings, no profiler collecting, no `recording()`), it returns

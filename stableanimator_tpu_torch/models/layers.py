@@ -48,7 +48,8 @@ class Conv3d(nn.Conv3d):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm with fp32 statistics over channels-last input."""
+    """GroupNorm with fp32 statistics over channels-last input, followed by
+    SiLU when the call asks (`ops/norms.py::group_norm`)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -57,8 +58,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x, stats_group=None):
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, stats_group)
+    def forward(self, x, stats_group=None, silu: bool = False):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, stats_group,
+                          silu)
 
 
 class LayerNorm(nn.Module):
@@ -134,10 +136,10 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -169,11 +171,11 @@ class TemporalResnetBlock(nn.Module):
 
     def forward(self, x, temb=None):
         group = sequence.frame_group()
-        h = _temporal_conv(self.conv1, F.silu(self.norm1(x, group)), group)
+        h = _temporal_conv(self.conv1, self.norm1(x, group, silu=True), group)
         if self.time_emb_proj is not None and temb is not None:
             # temb: [B, F, E]
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = _temporal_conv(self.conv2, F.silu(self.norm2(h, group)), group)
+        h = _temporal_conv(self.conv2, self.norm2(h, group, silu=True), group)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -35,7 +35,6 @@ import contextlib
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from stableanimator_tpu_torch.core.config import UNetConfig
@@ -242,5 +241,5 @@ class UNetSpatioTemporal(nn.Module):
             block_skips = skips[-n_up:]
             del skips[-n_up:]
             x = blk(x, block_skips, emb, context, f)
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x, silu=True))
         return x.reshape(b, f, hh, ww, cfg.out_channels)

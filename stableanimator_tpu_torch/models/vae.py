@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from stableanimator_tpu_torch.core.config import VAEConfig
 from stableanimator_tpu_torch.models.layers import (
@@ -90,7 +89,7 @@ class Encoder(nn.Module):
         x = self.mid_block.resnets[0](x)
         x = self.mid_block.attentions[0](x)
         x = self.mid_block.resnets[1](x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class TemporalDecoder(nn.Module):
@@ -134,7 +133,7 @@ class TemporalDecoder(nn.Module):
                 x = res(x, num_frames=num_frames)
             if blk.upsamplers is not None:
                 x = blk.upsamplers[0](x)
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x, silu=True))
         n, hh, ww, c = x.shape
         xv = self.time_conv_out(x.reshape(n // num_frames, num_frames, hh, ww, c))
         return xv.reshape(n, hh, ww, c)

@@ -338,11 +338,13 @@ def test_chip_smoke_kernel_line_names_what_bounds_most_of_its_bound():
     rows = {name: [] for name in cs.KERNELS}
     rows[cs.FWD_KERNEL] = [("pro_level0", row((32, 9216, 5, 64), 3.518, "operations")),
                            ("pro_level2", row((32, 576, 20, 64), 0.056, "bytes"))]
-    pro = {"timed": {"by_shape": {(32, 9216, 9216, 5, 64): 125, (32, 576, 576, 20, 64): 125}}}
+    pro = {"timed": {"by_shape": {(32, 9216, 9216, 5, 64): 125, (32, 576, 576, 20, 64): 125},
+                     "norms": {("group_norm", (32, 9216, 320, True)): 100}}}
+    paths = cs._paths(None, None, None, pro=pro)
     max_err = {name: 0.0 for name in cs.KERNELS}
-    fwd = cs._kernel_entries(max_err, rows, None, None, None, pro=pro)[0]
+    fwd = cs._kernel_entries(max_err, rows, paths)[0]
     assert (fwd["name"], fwd["launches"], fwd["bound_by"]) == (cs.FWD_KERNEL, 250, "operations")
     assert fwd["bound_ms"] == pytest.approx(125 * (3.518 + 0.056))
     rows[cs.FWD_KERNEL] = rows[cs.FWD_KERNEL][1:]
     with pytest.raises(SystemExit, match="not timed"):
-        cs._kernel_entries(max_err, rows, None, None, None, pro=pro)
+        cs._kernel_entries(max_err, rows, paths)

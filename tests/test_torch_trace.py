@@ -185,7 +185,8 @@ def test_recording_gives_the_span_tree(micro, fake_cuda):
         kids = children[root["id"]]
         assert {k["name"] for k in kids} == (REQUEST if root["name"] == "request" else STEP)
         assert len(kids) == 4
-        assert set(root["counts"]) == {"flash_fwd", "flash_resident", "flash_bwd"}
+        assert set(root["counts"]) == {"flash_fwd", "flash_resident", "flash_bwd", "norm_kernel",
+                                       "norm_eager"}
         assert all(v == 0 for v in root["counts"].values())     # the CPU path counts none
         for k in kids:
             assert k["unit"] == root["unit"] and k["counts"] is None

@@ -80,7 +80,8 @@ def test_spans_record_under_a_cuda_profile_on_its_clock(card):
     # the events time the four products, and the sleep before them
     kernel_s = sum(e - s for s, e, _ in gemms[:4]) / 1e9
     assert kernel_s <= first["device_s"] <= kernel_s + SLEEP_S + 0.01
-    assert set(first["counts"]) == {"flash_fwd", "flash_resident", "flash_bwd"}
+    assert set(first["counts"]) == {"flash_fwd", "flash_resident", "flash_bwd", "norm_kernel",
+                                    "norm_eager"}
 
 
 def test_timings_wait_for_the_card(card):
