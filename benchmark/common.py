@@ -1,6 +1,6 @@
-"""What the harness's parts share: its files, found by name, the seeds of
-its inputs, and the program's model configurations built from a
-configuration file."""
+"""What the harness's parts share: its files, found by name (drivers,
+metric readers, model families), the seeds of its inputs, and the program's
+model configurations built from a configuration file."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+FAMILIES = HERE / "families"     # a model family's counts and weights (family())
 
 
 def load_json(path) -> dict:
@@ -44,6 +45,22 @@ def driver(name: str):
 
 def metric_reader(name: str):
     return load_module(HERE / "metrics" / f"{name}.py", "benchmark_metric_" + name.replace(".", "_"))
+
+
+def family(cfg: dict):
+    """The module of a configuration's model family, `FAMILIES/<name>.py`
+    for `"family": "<name>"`, or None for a configuration without the key:
+    the SVD family, whose counts and weights `counts.py` and `weights.py`
+    hold. A family module holds `model_flops(cfg, work)`,
+    `attention_calls(cfg, work)`, `build(cfg, device, *, meta)`, `ORDER`,
+    `NORMS` and `served_dtype(model, module, key, name, dtype)`."""
+    name = cfg.get("family")
+    if name is None:
+        return None
+    path = FAMILIES / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"model family {name!r}: no file {path}")
+    return load_module(path, "benchmark_family_" + name.replace(".", "_"))
 
 
 def stream_seed(seed: int, *parts) -> int:

@@ -2,6 +2,12 @@
 from a configuration file's published widths and a cell's shapes; the
 program's counters are not read.
 
+What follows is the SVD family's count (a configuration file without a
+`"family"` key). A configuration with `"family": "<name>"` is counted by
+`benchmark/families/<name>.py` (`common.family`): `model_flops` and
+`attention_calls` return its answer, made of the same call dicts that
+`call_work` and `bound_seconds` read.
+
 Model FLOPs: 2 M N K for every matrix product and convolution the model's
 math needs (an attention is two products: 4 B H Sq Sk D), biases,
 normalisations and elementwise work not counted. A request is the UNet at
@@ -27,6 +33,8 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
+
+from benchmark import common
 
 PEAKS = json.loads((Path(__file__).resolve().parent / "peaks.json").read_text())
 FLASH_MIN_KEYS, FLASH_MIN_QUERIES = 512, 128
@@ -170,6 +178,9 @@ def face_flops(fe: dict, n: int = 1) -> int:
 
 def model_flops(cfg: dict, work: dict) -> int:
     """Model FLOPs of one unit of work (a driver's `work()`)."""
+    family = common.family(cfg)
+    if family is not None:
+        return family.model_flops(cfg, work)
     m = cfg["models"]
     f, hh, ww = work["frames"], work["height"], work["width"]
     h8, w8 = hh // 8, ww // 8
@@ -191,6 +202,9 @@ def _routed(sq: int, sk: int) -> bool:
 def attention_calls(cfg: dict, work: dict) -> list[dict]:
     """The flash-routed attention calls of one unit of work:
     [{"pass": "fwd" | "bwd", "b", "sq", "sk", "h", "d", "lse", "n"}]."""
+    family = common.family(cfg)
+    if family is not None:
+        return family.attention_calls(cfg, work)
     m = cfg["models"]
     u, v = m["unet"], m["vae"]
     f, h8, w8 = work["frames"], work["height"] // 8, work["width"] // 8

@@ -2,9 +2,10 @@
 
 The control (the reference with the models served in bf16 computed in fp8,
 in the program's place) has to read above at least one of the cell's limits
-on every seed, and so has the training cell's program with half of its clip
-left out. Each case prints its numbers beside the limits as one JSON line.
-The cases of one seed share the float32 reference. Needs the card:
+on every seed, and so has each training cell's program with half of its
+clip left out. Each case prints its numbers beside the limits as one JSON
+line. The cases of one cell and seed share the float32 reference. Needs the
+card (`-k <cell>` for one cell's cases):
 
     python -m pytest benchmark/tests/test_bench_control.py -m cuda -s
 """
@@ -18,6 +19,7 @@ from benchmark import common, run
 from benchmark.tests.test_bench_harness import _half_batch_train
 
 SPEC = common.benchmark_spec()
+TRAIN = [w["name"] for w in SPEC["workloads"] if common.traffic(w["traffic"])["driver"] == "train"]
 SEEDS = (2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103)
 _WANTED: dict = {}   # (workload, seed) -> the reference's reading
 
@@ -48,11 +50,11 @@ def test_the_control_is_not_correct(workload, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS)
-def test_half_the_clip_left_out_is_not_correct(monkeypatch, seed):
-    """The training cell's program with the loss over the clip's first
-    half (frames, poses, masks and noises), its set-up steps judged as a
-    run judges them."""
-    workload = "train-512x512-16f"
+@pytest.mark.parametrize("workload", TRAIN)
+def test_half_the_clip_left_out_is_not_correct(monkeypatch, workload, seed):
+    """A training cell's program with the loss over the clip's first half
+    (frames, poses, masks and noises), its set-up steps judged as a run
+    judges them."""
     cell, limits = _cell(workload, seed)
     _half_batch_train(monkeypatch)
     cell.setup()

@@ -243,6 +243,7 @@ FAULTS = {"animate-512x512-16f": [None, _state_unchanged_animate, _half_batch_an
                                   _answer_altered_animate],
           "train-512x512-16f": [None, _state_unchanged_train, _half_batch_train,
                                 _answer_altered_train]}
+FAULTS["train-1024x576-16f"] = FAULTS["train-512x512-16f"]      # at micro size, portrait
 
 
 @pytest.mark.parametrize("workload,fault", [(w, f) for w, fs in FAULTS.items() for f in fs],

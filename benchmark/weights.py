@@ -9,24 +9,33 @@ vectors. Each model's leaves are drawn in one call from a generator of its
 own on the device, in the order of the reference's state dict, so a seed
 gives the same weights whatever the dtypes they are served in, and one
 model's weights can be made again without the others.
+
+The rules hold for every model family. What names the models, builds them
+and says which leaves are norm scales and float32 islands is the family's:
+here the SVD family's (`ORDER`, `reference/models.py`, `_served_dtype`), for
+a configuration file without a `"family"` key; with `"family": "<name>"`,
+`benchmark/families/<name>.py`'s `ORDER`, `build`, `NORMS` and
+`served_dtype` (`common.family`).
 """
 
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn as nn
 
-from benchmark.common import stream_seed
+from benchmark import common
 from benchmark.reference import models as ref_models
 
 ORDER = ("unet", "vae", "clip", "pose_net", "face_encoder")
 
 
-def _rule(module: nn.Module, name: str, shape) -> tuple[str, float]:
-    """("one" | "zero" | "uniform", limit) for one leaf."""
-    if name == "scale" or (isinstance(module, ref_models.NORMS) and name == "weight"):
+def _rule(module: nn.Module, name: str, shape, norms: tuple) -> tuple[str, float]:
+    """("one" | "zero" | "uniform", limit) for one leaf; `norms`: the module
+    classes whose `weight` is a scale."""
+    if name == "scale" or (isinstance(module, norms) and name == "weight"):
         return "one", 0.0
     if name == "bias":
         return "zero", 0.0
@@ -37,31 +46,38 @@ def _rule(module: nn.Module, name: str, shape) -> tuple[str, float]:
 
 
 def _served_dtype(model: str, module: nn.Module, key: str, name: str, dtype: torch.dtype):
-    """The dtype a leaf is served in: `dtype`, except the float32 islands
-    (norm affines, AlphaBlender mixes, the VAE encoder and quant_conv)."""
+    """The dtype an SVD-family leaf is served in: `dtype`, except the float32
+    islands (norm affines, AlphaBlender mixes, the VAE encoder and
+    quant_conv)."""
     if (isinstance(module, ref_models.NORMS) or name == "mix_factor"
             or (model == "vae" and key.startswith(("encoder.", "quant_conv.")))):
         return torch.float32
     return dtype
 
 
+SVD = types.SimpleNamespace(ORDER=ORDER, build=ref_models.build, NORMS=ref_models.NORMS,
+                            served_dtype=_served_dtype)
+
+
 def make(cfg: dict, seed: int, device, dtype: torch.dtype,
-         models=ORDER) -> dict[str, dict[str, torch.Tensor]]:
-    """{model: state dict} of the configuration's `models` (default all
-    five), each leaf in its served dtype (`dtype` outside the float32
-    islands; float32 gives float32 everywhere), drawn on `device` from
-    `seed`."""
-    meta = ref_models.build(cfg, None, meta=True)
+         models=None) -> dict[str, dict[str, torch.Tensor]]:
+    """{model: state dict} of the configuration's `models` (default all of
+    its family's `ORDER`), each leaf in its served dtype (`dtype` outside
+    the family's float32 islands; float32 gives float32 everywhere), drawn
+    on `device` from `seed`."""
+    family = common.family(cfg) or SVD
+    meta = family.build(cfg, None, meta=True)
     out = {}
-    for model in models:
-        gen = torch.Generator(device=device).manual_seed(stream_seed(seed, "weights", model))
+    for model in family.ORDER if models is None else models:
+        gen = torch.Generator(device=device).manual_seed(
+            common.stream_seed(seed, "weights", model))
         mod = meta[model]
         leaves = []
         for mod_name, sub in mod.named_modules():
             for name, p in sub.named_parameters(recurse=False):
                 key = f"{mod_name}.{name}" if mod_name else name
-                leaves.append((key, p.shape, *_rule(sub, name, p.shape),
-                               _served_dtype(model, sub, key, name, dtype)))
+                leaves.append((key, p.shape, *_rule(sub, name, p.shape, family.NORMS),
+                               family.served_dtype(model, sub, key, name, dtype)))
         total = sum(math.prod(s) for _, s, *_ in leaves)
         flat = torch.rand(total, generator=gen, device=device, dtype=torch.float32)
         sd, at = {}, 0
